@@ -1,0 +1,298 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
+(one nvcc per source, all at once), then:
+  1. holds each kernel against its plain PyTorch version on the card, at
+     the main path's shapes, bit for bit (tolerance 0), and times both
+     (CUDA events);
+  2. drives the port's main path, `repro_torch.launch.ingest.main`, for
+     120 ticks at the default deployment, with the launch counters set
+     to 0 just before and read just after;
+  3. runs that loop again with span telemetry on and under
+     torch.profiler, and prints where a tick goes (host stages, device
+     busy time, the device's idle share);
+  4. runs the uncontrolled loop (seed 0, 40 ticks, 2^12/2^14 store) on
+     the card and on the host and requires equal stores and reports.
+Any failure raises; no phase is caught.  It prints the card, the build
+time, a `kernels` JSON line and, last, the `ok` JSON line.  It exits
+non-zero without a CUDA device or without the port beside it.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
+NODE_SWEEP = ("node", 1 << 20, 16_384)  # store_nodes, 2 x max_edges_per_batch lanes
+EDGE_SWEEP = ("edge", 1 << 21, 8_192)  # store_edges, max_edges_per_batch lanes
+LOADS = (0.0, 0.5, 0.7, 0.85)
+PROBES = (32, 64, 128)
+FILL_PROBES = 1 << 12  # fills the test tables without dropping keys
+KERNEL_REPS, PLAIN_REPS = 20, 5
+MAIN_TICKS = 120
+
+
+def _random_keys(rng, n):
+    """n distinct nonzero uint64 keys, about half with bit 63 set, as int64 bits."""
+    keys = np.unique(rng.integers(1, 2**64 - 1, size=int(n * 1.01) + 16, dtype=np.uint64))
+    rng.shuffle(keys)
+    return keys[:n].view(np.int64)
+
+
+def _time_ms(torch, fn, base, args, reps):
+    """Median ms of `fn(table, *args)` over `reps` runs, each on a fresh
+    copy of `base` (the copy is outside the timed region)."""
+    times = []
+    for _ in range(reps):
+        table = base.clone()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(table, *args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _least_bytes(torch, probe_hash, keys, valid, slot, is_new, cap, probes):
+    """Bytes the sweep must move on these inputs: keys and valid read,
+    slot and is_new written, the probe budget, one 8-byte table slot
+    read per probe round each valid lane takes, one written per new key.
+    A placed lane took (slot - first candidate) mod cap + 1 rounds (cap
+    is a power of two), a dropped lane the whole budget."""
+    n = keys.shape[0]
+    first = probe_hash(keys, cap, 0)
+    rounds = torch.where(slot >= 0, (slot.long() - first) % cap + 1,
+                         torch.full_like(first, probes))
+    reads = int(rounds[valid].sum())
+    return n * (8 + 1) + n * (4 + 1) + 4 + 8 * reads + 8 * int(is_new.sum()), reads
+
+
+def kernel_vs_plain(torch, dev):
+    """Phase 1: fused_upsert kernel vs its plain version, bit-equal."""
+    from repro_torch.kernels.upsert import fused_upsert, fused_upsert_ref, probe_hash
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for sweep, cap, n in (NODE_SWEEP, EDGE_SWEEP):
+        fill_keys = torch.from_numpy(_random_keys(rng, int(max(LOADS) * cap) + n)).to(dev)
+        table = torch.zeros(cap, dtype=torch.int64, device=dev)
+        filled = 0
+        for load in LOADS:
+            m = int(load * cap)
+            if m > filled:  # fill with the plain version, not the kernel under test
+                part = fill_keys[filled:m]
+                _, fslot, _ = fused_upsert_ref(table, part, torch.ones_like(part, dtype=torch.bool),
+                                               FILL_PROBES)
+                if bool((fslot < 0).any()):
+                    raise AssertionError(f"{sweep} fill to load {load} dropped keys")
+                filled = m
+            # 30% of the lanes look up keys already in the table, the
+            # rest are new; about 10% of the lanes are invalid
+            perm = torch.from_numpy(rng.permutation(m)[: int(0.3 * n)]).to(dev)
+            present = fill_keys[perm]
+            fresh = fill_keys[-(n - present.numel()):]
+            keys = torch.cat([present, fresh])[torch.from_numpy(rng.permutation(n)).to(dev)]
+            keys = keys.contiguous()
+            valid = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+            first = probe_hash(keys[valid], cap, 0)
+            contended = int(first.numel() - torch.unique(first).numel())
+            for probes in PROBES:
+                budget = torch.tensor(probes, dtype=torch.int32, device=dev)
+                tk, sk, nk = fused_upsert(table.clone(), keys, valid, budget)
+                tp, sp, np_ = fused_upsert_ref(table.clone(), keys, valid, budget)
+                torch.cuda.synchronize()
+                table_equal = torch.equal(tk, tp)
+                err = max(int((sk.long() - sp.long()).abs().max()),
+                          int((nk.int() - np_.int()).abs().max()),
+                          0 if table_equal else int((tk != tp).sum()))
+                if not (table_equal and torch.equal(sk, sp) and torch.equal(nk, np_)):
+                    raise AssertionError(f"fused_upsert kernel != plain: {sweep} "
+                                         f"load={load} probes={probes} max_abs_err={err}")
+                nbytes, reads = _least_bytes(torch, probe_hash, keys, valid, sp, np_, cap, probes)
+                rows.append({
+                    "sweep": sweep, "cap": cap, "lanes": n, "load": load,
+                    "table_load": filled / cap, "probes": probes,
+                    "hits": int(((sp >= 0) & ~np_).sum()), "new": int(np_.sum()),
+                    "dropped": int((valid & (sp < 0)).sum()), "contended_lanes": contended,
+                    "probe_reads": reads, "max_abs_err": err,
+                    "ms": _time_ms(torch, fused_upsert, table, (keys, valid, budget),
+                                   KERNEL_REPS),
+                    "plain_ms": _time_ms(torch, fused_upsert_ref, table,
+                                         (keys, valid, budget), PLAIN_REPS),
+                    "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+                })
+                print("upsert", json.dumps(rows[-1]), flush=True)
+    print("fused_upsert kernel == plain bit for bit (tolerance 0) at all "
+          f"{len(rows)} shapes", flush=True)
+    return rows
+
+
+def main_path(torch):
+    """Phase 2: the port's CLI at the default deployment, 120 ticks."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import ingest
+
+    build.launches.clear()
+    t0 = time.perf_counter()
+    rep, pipe = ingest.main(["--ticks", str(MAIN_TICKS)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    commits = [c for c in pipe.sink.ingestor.commits if c.ok]
+    if not commits or launches.get("fused_upsert", 0) != 2 * len(commits):
+        raise AssertionError(f"expected 2 upsert launches per commit: "
+                             f"{launches} for {len(commits)} commits")
+    mu = rep.samples["mu"]
+    if not (np.isfinite(mu).all() and rep.total_records > 0
+            and int(pipe.store.n_nodes) > 0 and int(pipe.store.n_edges) > 0):
+        raise AssertionError("main path produced no finite, non-empty result")
+    busy = [c.busy_s * 1e3 for c in commits]
+    print(f"main path: ticks={MAIN_TICKS} commits={len(commits)} "
+          f"wall_ms_per_tick={wall_s * 1e3 / MAIN_TICKS} "
+          f"wall_ms_per_commit={wall_s * 1e3 / len(commits)} "
+          f"commit_busy_ms_mean={statistics.mean(busy)} "
+          f"commit_busy_ms_p50={statistics.median(busy)} commit_busy_ms_max={max(busy)} "
+          f"launches={launches}", flush=True)
+    return launches
+
+
+def tick_breakdown(torch):
+    """Phase 3: where a tick of the main path goes.  The same loop as
+    phase 2, built through the builder with span telemetry on and under
+    torch.profiler: host span totals per stage, and the device's busy
+    time (kernels and copies) against the wall time of the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import MetricsHub, PipelineBuilder
+    from repro_torch.configs.paper_ingest import IngestConfig
+    from repro_torch.ingest.sources import BurstyTweetSource
+    from repro_torch.kernels import build
+    from repro_torch.telemetry.spans import TelemetryRegistry
+
+    reg = TelemetryRegistry(enabled=True)
+    pipe = (PipelineBuilder(IngestConfig(), device="cuda")
+            .with_source(BurstyTweetSource(seed=0))
+            .with_metrics(MetricsHub(telemetry=reg)).build())
+    pipe.transform.telemetry = reg
+    pipe.sink.ingestor.telemetry = reg
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.run(max_ticks=MAIN_TICKS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                     for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in device)
+    spans = {name: {"total_ms": st["total_s"] * 1e3, "count": st["count"]}
+             for name, st in reg.summary().items()}
+    ported = {name: {"ms": sum(ms for k, ms, _ in device if name in k),
+                     "count": sum(c for k, _, c in device if name in k)}
+              for name in build.kernel_names()}
+    print("breakdown", json.dumps({
+        "ticks": MAIN_TICKS, "wall_ms": wall_ms, "spans": spans,
+        "device_busy_ms": busy_ms if device else "not measured",
+        "device_idle_share": 1 - busy_ms / wall_ms if device else "not measured",
+        "ported_kernels_device": ported if device else "not measured",
+        "top_device": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in device[:10]],
+    }), flush=True)
+
+
+def cuda_vs_cpu(torch):
+    """Phase 4: uncontrolled loop on the card and on the host, equal."""
+    from repro_torch.api import PipelineBuilder
+    from repro_torch.configs.paper_ingest import IngestConfig
+    from repro_torch.convert import store_to_numpy
+    from repro_torch.ingest.sources import BurstyTweetSource
+
+    digests = {}
+    for device in ("cuda", "cpu"):
+        cfg = IngestConfig(store_nodes=1 << 12, store_edges=1 << 14)
+        pipe = (PipelineBuilder(cfg, device=device)
+                .with_source(BurstyTweetSource(seed=0)).uncontrolled().build())
+        rep = pipe.run(max_ticks=40)
+        ing = pipe.sink.ingestor
+        digests[device] = (
+            store_to_numpy(pipe.store),
+            {"records": rep.total_records, "instructions": rep.total_instructions,
+             "raw": rep.raw_instructions, "commits": len(ing.commits),
+             "dropped": sum(c.dropped for c in ing.commits)},
+            rep.compression_ratios, rep.samples["mu"])
+    (sg, cg, crg, mug), (sc, cc, crc, muc) = digests["cuda"], digests["cpu"]
+    for name in sg:
+        if not np.array_equal(sg[name], sc[name]):
+            raise AssertionError(f"cuda and cpu stores differ in {name}")
+    if cg != cc or not np.array_equal(crg, crc) or not np.array_equal(mug, muc):
+        raise AssertionError(f"cuda and cpu reports differ: {cg} vs {cc}")
+    print(f"cuda vs cpu uncontrolled digest equal: {cg}", flush=True)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device is available")
+    import repro_torch
+
+    if SRC not in Path(repro_torch.__file__).resolve().parents:
+        sys.exit(f"chip_smoke: repro_torch must come from {SRC}")
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    print(f"build: {time.perf_counter() - t0:.3f} s for {sorted(logs)}", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+
+    rows = kernel_vs_plain(torch, dev)
+    launches = main_path(torch)
+    tick_breakdown(torch)
+    cuda_vs_cpu(torch)
+
+    # the main path's widest sweep at its own table load (under 1%)
+    ref = next(r for r in rows if r["sweep"] == "node" and r["load"] == 0.0
+               and r["probes"] == 32)
+    kernels = [{
+        "name": "fused_upsert", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_upsert.cu",
+        "replaces": "src/repro/kernels/upsert.py:104",
+        "launches": launches["fused_upsert"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": ref["ms"], "plain_ms": ref["plain_ms"], "bound_ms": ref["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {k: ref[k] for k in ("sweep", "cap", "lanes", "load", "probes")},
+    }]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

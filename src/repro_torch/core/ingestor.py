@@ -1,0 +1,340 @@
+"""Graph Ingestor + Commit (Algorithm 3 GRAPHPUSH).
+Counterpart of `repro.core.ingestor`.
+
+Bridges the pipeline to the graph store: converts compressed edge
+tables into store commits, respecting a bounded ingestion pool (the
+paper's bolt-connector pool), with commit-failure archiving and retry.
+mu = busy time of the ingest engine over the sampling window; a commit's
+busy time ends with a synchronize on the store's device, so it covers
+the device's work.
+
+  * the archive is BOUNDED: past `max_archive` in-memory batches,
+    failed commits spill to disk (pickled numpy edge tables) and refill
+    FIFO as retries drain them;
+  * the pool has a hard cap (`pool_cap`, default 4x `max_pool_size`):
+    overflow batches divert to the archive, counted in `pool_overflows`;
+  * with a retry policy attached (any object with `delay(k)`),
+    consecutive commit failures arm a capped-exponential-backoff gate
+    (`next_retry_t`), and after `degrade_after` consecutive failures
+    `push` archives directly (DEGRADED mode).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import pickle
+import tempfile
+import time
+from typing import Deque, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.edge_table import EdgeTable
+from repro_torch.graphstore.store import GraphStore, ingest_step
+from repro_torch.telemetry.spans import NULL_REGISTRY
+
+_KEY_FIELDS = ("src", "dst", "node_ids")
+# commit stats the host reads after every commit, fetched in one copy
+_HOST_STATS = ("instructions", "new_nodes", "batch_nodes", "probe_rounds",
+               "dropped_inserts", "node_load", "edge_load")
+
+
+@dataclasses.dataclass
+class CommitRecord:
+    t: float
+    busy_s: float
+    instructions: int
+    new_nodes: int
+    batch_nodes: int
+    ok: bool
+    probe_rounds: int = 0  # adaptive probe budget the commit ran with
+    dropped: int = 0  # inserts lost to table pressure (probing exhausted)
+
+
+def _to_host(et: EdgeTable) -> EdgeTable:
+    """Edge table -> numpy leaves (pickle/spill-safe), keys as uint64:
+    the layout of the reference's archive files."""
+    def host(name, x):
+        a = x.detach().cpu().numpy()
+        return a.view(np.uint64) if name in _KEY_FIELDS else a
+
+    return EdgeTable(**{f.name: host(f.name, getattr(et, f.name))
+                        for f in dataclasses.fields(et)})
+
+
+def _to_device(et: EdgeTable, device: torch.device) -> EdgeTable:
+    """Inverse of `_to_host`: numpy leaves back to tensors on `device`."""
+    def dev(a):
+        a = np.asarray(a)
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return EdgeTable(**{f.name: dev(getattr(et, f.name))
+                        for f in dataclasses.fields(et)})
+
+
+class GraphIngestor:
+    def __init__(self, store: GraphStore, max_pool_size: int = 4, fail_hook=None,
+                 occupancy_window: float = 10.0, retry_policy=None,
+                 pool_cap: Optional[int] = None, max_archive: int = 128,
+                 archive_dir: Optional[str] = None, degrade_after: int = 3):
+        self.store = store
+        self.max_pool_size = max_pool_size
+        # hard admission ceiling: beyond it, batches divert to the archive
+        self.pool_cap = pool_cap if pool_cap is not None else 4 * max_pool_size
+        self.pool: Deque[EdgeTable] = collections.deque()
+        self.archive: Deque[EdgeTable] = collections.deque()  # Alg. 3 line 18
+        self.commits: List[CommitRecord] = []
+        self.fail_hook = fail_hook  # nullary, or callable(now) with `wants_now = True`
+        # observers of every SUCCESSFUL commit: hook(et, stats).  Push can
+        # drain pooled batches and retry_archive replays old ones, so a
+        # commit-consistent observer hooks here rather than on push().
+        self.commit_hook = None
+        self.commit_hooks: List = []
+        self.occupancy_window = occupancy_window
+        self._busy: Deque[Tuple[float, float]] = collections.deque(maxlen=512)
+        # commit sub-spans: upsert-dispatch / device-wait / observer hooks
+        self.telemetry = NULL_REGISTRY
+        self.retry_policy = retry_policy
+        self.max_archive = max_archive
+        self.archive_dir = archive_dir
+        self.degrade_after = degrade_after
+        self._archive_spill: List[str] = []  # on-disk overflow, FIFO
+        self._archive_n = 0  # monotone spill-file counter
+        self.consecutive_failures = 0
+        self.next_retry_t = float("-inf")  # backoff gate (simulated time)
+        # accounting: archived_total == replayed + archive_depth always
+        self.archived_total = 0
+        self.replayed = 0
+        self.attempts = 0
+        self.pool_overflows = 0
+
+    # ---- archive (bounded, disk-spilled past max_archive) -----------
+    @property
+    def archive_depth(self) -> int:
+        """Failed batches awaiting replay, memory + disk."""
+        return len(self.archive) + len(self._archive_spill)
+
+    @property
+    def degraded(self) -> bool:
+        """Store considered down: policy attached and the consecutive-
+        failure count passed `degrade_after`."""
+        return (self.retry_policy is not None
+                and self.consecutive_failures >= self.degrade_after)
+
+    def _spill_path(self) -> str:
+        if self.archive_dir is None:
+            self.archive_dir = tempfile.mkdtemp(prefix="repro_torch_archive_")
+        os.makedirs(self.archive_dir, exist_ok=True)
+        fn = os.path.join(self.archive_dir, f"archive_{self._archive_n:08d}.pkl")
+        self._archive_n += 1
+        return fn
+
+    def _archive_put(self, et) -> None:
+        self.archived_total += 1
+        # keep FIFO across the memory/disk boundary: once anything
+        # spilled, later batches must spill too or replay reorders
+        if self._archive_spill or len(self.archive) >= self.max_archive:
+            fn = self._spill_path()
+            with open(fn, "wb") as f:
+                pickle.dump(_to_host(et), f, pickle.HIGHEST_PROTOCOL)
+            self._archive_spill.append(fn)
+            self.telemetry.count("archive.spilled")
+        else:
+            self.archive.append(et)
+
+    def _archive_refill(self) -> None:
+        """Pull spilled batches back into memory headroom, in order."""
+        while self._archive_spill and len(self.archive) < self.max_archive:
+            fn = self._archive_spill.pop(0)
+            with open(fn, "rb") as f:
+                self.archive.append(_to_device(pickle.load(f), self.store.device))
+            os.unlink(fn)
+
+    # ------------------------------------------------------------------
+    def push(self, et: EdgeTable, now: Optional[float] = None) -> dict:
+        """GRAPHPUSH: pool admission + commit.  Returns commit stats."""
+        wall = now if now is not None else time.time()
+        if self.retry_policy is not None and self.degraded:
+            if wall < self.next_retry_t:
+                # degraded mode: the store is down and the backoff gate
+                # is closed — preserve the batch without a doomed probe
+                self._archive_put(et)
+                return {"committed": False, "archived": self.archive_depth,
+                        "degraded": True}
+        if len(self.pool) >= self.max_pool_size:
+            if len(self.pool) >= self.pool_cap:
+                self.pool_overflows += 1
+                self._archive_put(et)
+                return {"committed": False, "pooled": len(self.pool),
+                        "pool_overflow": self.pool_overflows}
+            # pool full: hold in local memory until timeout (paper §III-B)
+            self.pool.append(et)
+            return {"committed": False, "pooled": len(self.pool)}
+        self.pool.append(et)
+        stats = {}
+        while self.pool:
+            stats = self._commit(self.pool.popleft(), now)
+            if not stats["committed"]:
+                break
+        return stats
+
+    def _sync(self) -> None:
+        if self.store.device.type == "cuda":
+            torch.cuda.synchronize(self.store.device)
+
+    def _commit(self, et: EdgeTable, now: Optional[float],
+                archive_on_fail: bool = True) -> dict:
+        tel = self.telemetry
+        wall = now if now is not None else time.time()
+        t0 = time.perf_counter()
+        self.attempts += 1
+        try:
+            if self.fail_hook is not None:
+                fh = self.fail_hook
+                hit = fh(wall) if getattr(fh, "wants_now", False) else fh()
+                if hit:
+                    raise ConnectionError("injected commit failure")
+            with tel.span("commit.upsert"):
+                self.store, s = ingest_step(self.store, et)
+            with tel.span("commit.wait"):
+                self._sync()
+                host = dict(zip(_HOST_STATS, torch.stack(
+                    [s[k].to(torch.float64) for k in _HOST_STATS]).tolist()))
+            busy = time.perf_counter() - t0
+            tel.observe("commit.total", busy)
+            self._busy.append((wall, busy))
+            self.consecutive_failures = 0
+            self.next_retry_t = float("-inf")
+            rec = CommitRecord(
+                t=wall,
+                busy_s=busy,
+                instructions=int(host["instructions"]),
+                new_nodes=int(host["new_nodes"]),
+                batch_nodes=int(host["batch_nodes"]),
+                ok=True,
+                probe_rounds=int(host["probe_rounds"]),
+                dropped=int(host["dropped_inserts"]),
+            )
+            self.commits.append(rec)
+            with tel.span("commit.hooks"):
+                if self.commit_hook is not None:
+                    self.commit_hook(et, s)
+                for hook in self.commit_hooks:
+                    hook(et, s)
+            return {
+                "committed": True,
+                "stats": s,
+                "busy_s": busy,
+                "rho": rec.new_nodes / max(rec.batch_nodes, 1),
+                "instructions": rec.instructions,
+                # table-pressure signals for the Algorithm-2 controller
+                "dropped": rec.dropped,
+                "probe_rounds": rec.probe_rounds,
+                "pressure": max(host["node_load"], host["edge_load"]),
+            }
+        except ConnectionError:
+            # commit failed (network/DBMS) -> archive for replay
+            self.consecutive_failures += 1
+            out = {"committed": False}
+            if self.retry_policy is not None:
+                delay = self.retry_policy.delay(self.consecutive_failures - 1)
+                self.next_retry_t = wall + delay
+                out["retry_in_s"] = delay
+                tel.count("retry.backoff")
+                if self.degraded:
+                    out["degraded"] = True
+            if archive_on_fail:
+                self._archive_put(et)
+            self.commits.append(CommitRecord(wall, 0.0, 0, 0, 0, ok=False))
+            out["archived"] = self.archive_depth
+            return out
+
+    # ------------------------------------------------------------------
+    def retry_archive(self, now: Optional[float] = None) -> int:
+        """Re-commit archived batches (connection restored).  With a
+        retry policy attached the backoff gate is honoured: while
+        `now < next_retry_t` nothing is attempted."""
+        if self.retry_policy is not None:
+            wall = now if now is not None else time.time()
+            if wall < self.next_retry_t:
+                return 0
+        n = 0
+        while self.archive_depth:
+            self._archive_refill()
+            et = self.archive.popleft()
+            if self._commit(et, now, archive_on_fail=False)["committed"]:
+                n += 1
+                self.replayed += 1
+                continue
+            # failed head returns to the FRONT: replay order is FIFO
+            self.archive.appendleft(et)
+            break
+        if n:
+            self.telemetry.count("retry.replayed", n)
+        return n
+
+    def occupancy(self, now: float, sim_busy: Optional[float] = None) -> float:
+        """mu in [0,1]: ingest busy-fraction over the trailing window."""
+        w0 = now - self.occupancy_window
+        busy = sum(b for (t, b) in self._busy if t >= w0)
+        return min(busy / self.occupancy_window, 1.0)
+
+    def pending_work_s(self) -> float:
+        """Estimated seconds of work queued in the pool (system delay
+        alpha for the measured path)."""
+        busy = [b for (_, b) in self._busy]
+        mean_busy = sum(busy) / len(busy) if busy else 0.0
+        return len(self.pool) * mean_busy
+
+    # ---- checkpoint surface -------------------------------------------
+    def state(self) -> dict:
+        """Everything except `store`: pool/archive batches as numpy edge
+        tables, archive spill CONTENTS, counters and the backoff gate."""
+        spilled = []
+        for fn in self._archive_spill:
+            with open(fn, "rb") as f:
+                spilled.append(f.read())
+        fh = self.fail_hook
+        return {
+            "pool": [_to_host(et) for et in self.pool],
+            "archive": [_to_host(et) for et in self.archive],
+            "archive_spill": spilled,
+            "archive_n": self._archive_n,
+            "commits": list(self.commits),
+            "busy": list(self._busy),
+            "attempts": self.attempts,
+            "archived_total": self.archived_total,
+            "replayed": self.replayed,
+            "pool_overflows": self.pool_overflows,
+            "consecutive_failures": self.consecutive_failures,
+            "next_retry_t": self.next_retry_t,
+            "fail_hook": fh.state() if hasattr(fh, "state") else None,
+        }
+
+    def restore_state(self, s: dict) -> None:
+        dev = self.store.device
+        self.pool = collections.deque(_to_device(et, dev) for et in s["pool"])
+        self.archive = collections.deque(_to_device(et, dev) for et in s["archive"])
+        self._archive_spill = []
+        self._archive_n = int(s["archive_n"])
+        for blob in s["archive_spill"]:
+            # rewrite under fresh (still-monotone) names: the original
+            # files may live in a dead temp dir or have been drained
+            fn = self._spill_path()
+            with open(fn, "wb") as f:
+                f.write(blob)
+            self._archive_spill.append(fn)
+        self.commits = list(s["commits"])
+        self._busy = collections.deque(s["busy"], maxlen=self._busy.maxlen)
+        self.attempts = int(s["attempts"])
+        self.archived_total = int(s["archived_total"])
+        self.replayed = int(s["replayed"])
+        self.pool_overflows = int(s["pool_overflows"])
+        self.consecutive_failures = int(s["consecutive_failures"])
+        self.next_retry_t = float(s["next_retry_t"])
+        if s.get("fail_hook") is not None and hasattr(self.fail_hook, "restore_state"):
+            self.fail_hook.restore_state(s["fail_hook"])

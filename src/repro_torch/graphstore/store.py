@@ -1,0 +1,197 @@
+"""Device-resident property-graph store (counterpart of
+`repro.graphstore.store`).
+
+Open-addressing hash tables in torch tensors (linear probing, vectorised
+over the batch).  The store ingests compressed edge-table batches
+(Algorithm 3 GRAPHPUSH): MERGE semantics for nodes (insert-if-absent),
+CREATE-or-count for edges (duplicate edges accumulate `count`).
+
+A commit runs exactly two fused upsert sweeps (`kernels.ops.fused_upsert`,
+nodes then edges); degree updates reuse the node slots through the edge
+table's dedup index.  The probe budget is adaptive (x2 past 0.6 load,
+x4 past 0.8) and stays a device scalar, which the kernel reads itself.
+
+Unlike the reference, `ingest_step` updates the store's tensors IN
+PLACE and returns the same `GraphStore`: the tables are the largest
+state on the device, and a functional copy would move them on every
+commit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple, Union
+
+import torch
+
+from repro_torch.core.compression import mix_keys
+from repro_torch.device import resolve
+from repro_torch.kernels import ops
+
+MAX_PROBES = 32
+
+
+@dataclasses.dataclass
+class GraphStore:
+    node_keys: torch.Tensor  # (Ncap,) int64 key bits; 0 = empty
+    node_count: torch.Tensor  # (Ncap,) int32  (times seen, a node property)
+    node_degree: torch.Tensor  # (Ncap,) int32
+    edge_keys: torch.Tensor  # (Ecap,) int64
+    edge_src: torch.Tensor  # (Ecap,) int64
+    edge_dst: torch.Tensor  # (Ecap,) int64
+    edge_type: torch.Tensor  # (Ecap,) int32
+    edge_count: torch.Tensor  # (Ecap,) int32
+    n_nodes: torch.Tensor  # scalar int32
+    n_edges: torch.Tensor  # scalar int32
+
+    @property
+    def device(self) -> torch.device:
+        return self.node_keys.device
+
+
+@dataclasses.dataclass
+class CommitDelta:
+    """What one commit changed: the incremental-snapshot input.
+
+    Node arrays are (2*cap,), edge arrays (cap,) at the edge-table
+    capacity.  `*_placed` marks entries that reached the store;
+    `*_new` marks first insertions; `src_deg`/`dst_deg` mark the
+    endpoints that received a +1 degree."""
+
+    node_ids: torch.Tensor
+    node_placed: torch.Tensor
+    node_new: torch.Tensor
+    src: torch.Tensor
+    dst: torch.Tensor
+    etype: torch.Tensor
+    count: torch.Tensor
+    edge_placed: torch.Tensor
+    edge_new: torch.Tensor
+    src_deg: torch.Tensor
+    dst_deg: torch.Tensor
+
+
+def init_store(node_cap: int, edge_cap: int,
+               device: Union[str, torch.device] = "cuda") -> GraphStore:
+    dev = resolve(device)
+
+    def z(c, dtype):
+        return torch.zeros(c, dtype=dtype, device=dev)
+
+    return GraphStore(
+        node_keys=z(node_cap, torch.int64),
+        node_count=z(node_cap, torch.int32),
+        node_degree=z(node_cap, torch.int32),
+        edge_keys=z(edge_cap, torch.int64),
+        edge_src=z(edge_cap, torch.int64),
+        edge_dst=z(edge_cap, torch.int64),
+        edge_type=z(edge_cap, torch.int32),
+        edge_count=z(edge_cap, torch.int32),
+        n_nodes=z((), torch.int32),
+        n_edges=z((), torch.int32),
+    )
+
+
+def probe_budget(n_used: torch.Tensor, cap: int) -> torch.Tensor:
+    """Adaptive probe rounds from the table load factor: MAX_PROBES
+    below 0.6 load, x2 past 0.6, x4 past 0.8 (int32 scalar tensor)."""
+    load = n_used.to(torch.float32) / float(cap)
+    mult = 1 + (load >= 0.6).to(torch.int32) + 2 * (load >= 0.8).to(torch.int32)
+    return MAX_PROBES * mult
+
+
+def _masked_add(dst: torch.Tensor, index: torch.Tensor, mask: torch.Tensor,
+                values: torch.Tensor) -> None:
+    """dst[index[mask]] += values[mask] without a host sync: masked
+    lanes add 0 to slot 0 (a no-op), which the reference gets by
+    scattering them to the dropped out-of-range index."""
+    idx = torch.where(mask, index, torch.zeros_like(index)).to(torch.int64)
+    dst.index_add_(0, idx, torch.where(mask, values, torch.zeros_like(values)))
+
+
+def ingest_step(store: GraphStore, et) -> Tuple[GraphStore, dict]:
+    """GRAPHPUSH (Algorithm 3): commit one compressed edge table.
+
+    Updates `store` in place and returns (store, stats).  stats carries
+    the controller signals: new-node count (diversity rho numerator),
+    sizes, the effective instruction count, the table-pressure signals
+    (dropped_inserts, loads, probe budget), the per-entry slots and the
+    `CommitDelta`.  Every value is a tensor on the store's device."""
+    ncap = store.node_keys.shape[0]
+    ecap = store.edge_keys.shape[0]
+    n_probes_n = probe_budget(store.n_nodes, ncap)
+    n_probes_e = probe_budget(store.n_edges, ecap)
+    one = torch.ones_like(et.count)
+
+    # ---- nodes: MERGE (one fused probe sweep) ----
+    _, nslot, n_isnew = ops.fused_upsert(
+        store.node_keys, et.node_ids, et.node_valid, n_probes_n)
+    node_placed = et.node_valid & (nslot >= 0)
+    is_new = n_isnew & et.node_valid
+    _masked_add(store.node_count, nslot, node_placed, torch.ones_like(nslot))
+    n_new_nodes = is_new.sum(dtype=torch.int32)
+    dropped_nodes = (et.node_valid & ~node_placed).sum(dtype=torch.int32)
+
+    # ---- edges: CREATE-or-count (one fused probe sweep) ----
+    ekey = mix_keys(et.src, et.dst, et.etype)
+    _, eslot, e_isnew = ops.fused_upsert(
+        store.edge_keys, ekey, et.edge_valid, n_probes_e)
+    edge_placed = et.edge_valid & (eslot >= 0)
+    e_new = e_isnew & et.edge_valid
+    # new edges won distinct slots; masked lanes must write nothing (a
+    # clamped index would race with a real write), so select them
+    new_lanes = e_new.nonzero().squeeze(1)
+    new_slots = eslot[new_lanes].to(torch.int64)
+    store.edge_src[new_slots] = et.src[new_lanes]
+    store.edge_dst[new_slots] = et.dst[new_lanes]
+    store.edge_type[new_slots] = et.etype[new_lanes]
+    _masked_add(store.edge_count, eslot, edge_placed, et.count)
+    n_new_edges = e_new.sum(dtype=torch.int32)
+    dropped_edges = (et.edge_valid & ~edge_placed).sum(dtype=torch.int32)
+
+    # ---- degree update (both endpoints of new edges), no re-probing:
+    # the dedup index maps each endpoint to its already-upserted slot
+    sslot = nslot[et.src_node_idx]
+    dslot = nslot[et.dst_node_idx]
+    src_deg = e_new & (sslot >= 0)
+    dst_deg = e_new & (dslot >= 0)
+    _masked_add(store.node_degree, sslot, src_deg, one)
+    _masked_add(store.node_degree, dslot, dst_deg, one)
+
+    store.n_nodes += n_new_nodes
+    store.n_edges += n_new_edges
+    batch_edges = et.edge_valid.sum(dtype=torch.int32)
+    minus1 = torch.full_like(nslot, -1)
+    stats = {
+        "new_nodes": n_new_nodes,
+        "new_edges": n_new_edges,
+        "batch_nodes": et.node_valid.sum(dtype=torch.int32),
+        "batch_edges": batch_edges,
+        "instructions": n_new_nodes + batch_edges,
+        "store_nodes": store.n_nodes.clone(),
+        "store_edges": store.n_edges.clone(),
+        # table-pressure signals (MetricsHub -> Algorithm-2 controller)
+        "dropped_nodes": dropped_nodes,
+        "dropped_edges": dropped_edges,
+        "dropped_inserts": dropped_nodes + dropped_edges,
+        "probe_rounds": torch.maximum(n_probes_n, n_probes_e),
+        "node_load": store.n_nodes.to(torch.float32) / float(ncap),
+        "edge_load": store.n_edges.to(torch.float32) / float(ecap),
+        # per-entry store slots (-1 = dropped)
+        "nslot": torch.where(node_placed, nslot, minus1),
+        "eslot": torch.where(edge_placed, eslot, torch.full_like(eslot, -1)),
+        # incremental snapshot maintenance input
+        "delta": CommitDelta(
+            node_ids=et.node_ids,
+            node_placed=node_placed,
+            node_new=is_new,
+            src=et.src,
+            dst=et.dst,
+            etype=et.etype,
+            count=et.count,
+            edge_placed=edge_placed,
+            edge_new=e_new,
+            src_deg=src_deg,
+            dst_deg=dst_deg,
+        ),
+    }
+    return store, stats

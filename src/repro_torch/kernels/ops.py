@@ -1,0 +1,10 @@
+"""Public entry points of the port's kernels (counterpart of
+`repro.kernels.ops`).
+
+Each op dispatches on the device of its tensors: a CUDA tensor launches
+the hand-written kernel, a CPU tensor runs the plain PyTorch version.
+This slice carries one op.
+"""
+from repro_torch.kernels.upsert import fused_upsert
+
+__all__ = ["fused_upsert"]

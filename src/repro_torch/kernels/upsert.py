@@ -1,0 +1,131 @@
+"""Fused lookup-or-insert for the open-addressing store tables
+(Algorithm 3 GRAPHPUSH commit hot path).
+
+Counterpart of `repro.kernels.upsert`.  One probe sweep per table: at
+each round a lane hits its key (slot found, not new), claims an empty
+slot (unsigned scatter-max race; the winner checks back: slot found,
+new), or probes on.  Keys are int64 tensors holding uint64 bits;
+0 marks an empty slot.
+
+`fused_upsert` is the wrapper: on a CUDA tensor it launches the
+hand-written kernel `csrc/fused_upsert.cu`, on a CPU tensor it runs the
+plain version `fused_upsert_ref`.  Both update the table IN PLACE and
+return it; the reference returns a fresh copy of the table (up to
+16 MB per sweep at the default store size) instead.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple, Union
+
+import torch
+
+from repro_torch.kernels import build
+
+_PROBE_MUL = 0x9E3779B97F4A7C15 - (1 << 64)  # the uint64 constant's int64 bits
+_LOW32 = 0xFFFFFFFF
+_SIGN = -(1 << 63)
+_MAX_CAP = 1 << 30  # slot ids and pending-claim codes must fit an int32
+
+
+def probe_hash(keys: torch.Tensor, cap: int, i: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Linear-probing slot for `keys` at probe round `i`: the low 32
+    bits of h ^ (h >> 16) with h = key * golden, plus i in uint32 with
+    wraparound, then % cap.  Returns int64 slots."""
+    h = keys * _PROBE_MUL
+    # the low 32 bits of an arithmetic and a logical shift by 16 agree
+    base = (h ^ (h >> 16)) & _LOW32
+    return ((base + i) & _LOW32) % cap
+
+
+def _check(table, keys, valid, n_probes):
+    if table.dim() != 1 or keys.dim() != 1 or valid.shape != keys.shape:
+        raise ValueError("table and keys must be 1-D and valid shaped like keys")
+    if table.dtype != torch.int64 or keys.dtype != torch.int64 or valid.dtype != torch.bool:
+        raise TypeError("table and keys must be int64 (uint64 bits), valid bool")
+    if not (0 < table.shape[0] <= _MAX_CAP):
+        raise ValueError(f"table capacity must be in (0, {_MAX_CAP}]")
+    if not (table.is_contiguous() and keys.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("table, keys and valid must be contiguous")
+    devices = {table.device, keys.device, valid.device}
+    if isinstance(n_probes, torch.Tensor):
+        devices.add(n_probes.device)
+    if len(devices) != 1:
+        raise ValueError(f"all operands must be on one device, got {devices}")
+
+
+def fused_upsert_ref(table: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
+                     n_probes: Union[int, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the sweep, round for round the
+    reference's `upsert_sweep`.  Updates `table` in place; returns
+    (table, slot int32 (-1 = dropped), is_new bool)."""
+    cap, n = table.shape[0], keys.shape[0]
+    dev = keys.device
+    slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    is_new = torch.zeros(n, dtype=torch.bool, device=dev)
+    done = ~valid
+    for i in range(int(n_probes)):
+        if bool(done.all()):  # later rounds change nothing
+            break
+        cand = probe_hash(keys, cap, i)
+        cur = table[cand]
+        live = valid & ~done
+        hit = (cur == keys) & live
+        empty = (cur == 0) & live
+        claim = empty.nonzero().squeeze(1)
+        if claim.numel():
+            # every claimant of a slot read it empty (0, the unsigned
+            # minimum), so the scatter-max leaves the largest claimant;
+            # unsigned max is signed max on sign-flipped keys
+            slots, inv = torch.unique(cand[claim], return_inverse=True)
+            best = torch.full(slots.shape, _SIGN, dtype=torch.int64, device=dev)
+            best.scatter_reduce_(0, inv, keys[claim] ^ _SIGN, "amax")
+            table[slots] = best ^ _SIGN
+        won = empty & (table[cand] == keys)
+        placed = hit | won
+        slot = torch.where(placed, cand.to(torch.int32), slot)
+        is_new |= won
+        done |= placed
+    return table, slot, is_new
+
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _launch(table, keys, valid, n_probes):
+    fn = build.library("fused_upsert").fused_upsert_launch
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    n = keys.shape[0]
+    if not isinstance(n_probes, torch.Tensor):
+        n_probes = torch.tensor(int(n_probes), device=table.device)
+    probes = n_probes.reshape(1).to(torch.int32).contiguous()
+    slot = torch.empty(n, dtype=torch.int32, device=table.device)
+    is_new = torch.empty(n, dtype=torch.bool, device=table.device)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = fn(table.data_ptr(), table.shape[0], keys.data_ptr(), valid.data_ptr(), n,
+             probes.data_ptr(), slot.data_ptr(), is_new.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_upsert launch failed: cudaError {err}")
+    build.launches["fused_upsert"] += 1
+    return table, slot, is_new
+
+
+def fused_upsert(table: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
+                 n_probes: Union[int, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused upsert of UNIQUE keys into `table`, updated in place.
+
+    table (cap,) int64 (0 = empty); keys (n,) int64; valid (n,) bool;
+    n_probes the probe budget (an int, or an int32 scalar tensor on the
+    table's device, read by the kernel so the host never waits for it).
+    Returns (table, slot int32 (-1 = dropped), is_new bool).  A CUDA
+    table launches the kernel, a CPU table runs `fused_upsert_ref`."""
+    _check(table, keys, valid, n_probes)
+    if table.device.type == "cuda":
+        return _launch(table, keys, valid, n_probes)
+    if table.device.type == "cpu":
+        return fused_upsert_ref(table, keys, valid, n_probes)
+    raise ValueError(f"fused_upsert runs on cuda or cpu, not {table.device}")

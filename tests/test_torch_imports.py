@@ -1,0 +1,89 @@
+"""The port stands alone and does not hide the device.
+
+  * Importing every `repro_torch` module loads neither `jax` nor the
+    reference package `repro` (checked in a fresh interpreter), and no
+    source file under `src/repro_torch` imports either.
+  * Entry points default to the card: without one, a run that did not
+    ask for the CPU raises instead of carrying on on the host.
+  * `chip_smoke.py` fails, and prints no result, where there is no card.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+PORT = SRC / "repro_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_reference():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
+                         env=_env(), cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 25 and bad == "[]", out.stdout
+
+
+def test_no_port_source_imports_jax_or_the_reference():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch, tmp_path):
+    from repro_torch.launch import ingest
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ingest.main(["--ticks", "2"])
+    rep, pipe = ingest.main(["--ticks", "3", "--device", "cpu"])
+    assert pipe.store.device.type == "cpu" and rep.total_records > 0
+
+
+@pytest.mark.parametrize("entry", ["builder", "sink", "transform", "controller"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    from repro_torch.api import GraphStoreSink, PipelineBuilder, TransformStage
+    from repro_torch.configs.paper_ingest import IngestConfig
+    from repro_torch.core.buffer import BufferController
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {
+        "builder": lambda: PipelineBuilder(IngestConfig()),
+        "sink": lambda: GraphStoreSink(node_cap=64, edge_cap=64),
+        "transform": lambda: TransformStage(),
+        "controller": lambda: BufferController(IngestConfig()),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run for real")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                         text=True, cwd=str(ROOT), timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
