@@ -15,7 +15,19 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      torch.profiler, and prints where a tick goes (host stages, device
      busy time, the device's idle share);
   4. runs the uncontrolled loop (seed 0, 40 ticks, 2^12/2^14 store) on
-     the card and on the host and requires equal stores and reports.
+     the card and on the host and requires equal stores and reports;
+  5. holds the sketch-scatter kernel against its plain version on the
+     card, bit for bit, at the query path's shapes with uniform and
+     Zipf-skewed keys, and times the kernel, the plain version and the
+     three `index_add_` calls that are the closest library equivalent;
+  6. drives the query path, `repro_torch.launch.query.run`, for 120
+     ticks in live mode at the default deployment (D=4, W=512, a 2^20-
+     node, 2^21-edge store), with the launch counters set to 0 just
+     before and read just after;
+  7. runs that query path again with spans on and under torch.profiler;
+  8. runs the uncontrolled query loop (seed 0, 40 ticks, 2^12/2^14
+     store, W=512) on the card and on the host and requires equal
+     stores, sketches, snapshots and query answers.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, a `kernels` JSON line and, last, the `ok` JSON line.  It exits
 non-zero without a CUDA device or without the port beside it.
@@ -40,7 +52,13 @@ LOADS = (0.0, 0.5, 0.7, 0.85)
 PROBES = (32, 64, 128)
 FILL_PROBES = 1 << 12  # fills the test tables without dropping keys
 KERNEL_REPS, PLAIN_REPS = 20, 5
+SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's clock: covers a launch's host work
 MAIN_TICKS = 120
+SKETCH_SHAPES = ((4, 256), (4, 512))  # (D, W): the CLI's dryrun and default widths
+SKETCH_LANES = (1_024, 8_192)  # edge-table caps of a sketch update on the query path
+ZIPF_A = 1.3
+QUERY_ARGV = ["--ticks", str(MAIN_TICKS), "--mode", "live", "--depth", "4", "--width", "512",
+              "--node-cap", str(1 << 20), "--edge-cap", str(1 << 21)]
 
 
 def _random_keys(rng, n):
@@ -51,14 +69,21 @@ def _random_keys(rng, n):
 
 
 def _time_ms(torch, fn, base, args, reps):
-    """Median ms of `fn(table, *args)` over `reps` runs, each on a fresh
-    copy of `base` (the copy is outside the timed region)."""
+    """Median ms of `fn(*copies, *args)` over `reps` runs, each on fresh
+    copies of the tensor `base` or of each tensor of the tuple `base`
+    (the copies are made outside the timed region).  A device sleep is
+    queued before the start event, so the host has enqueued the work
+    before the device reaches it, and the events time the device alone,
+    not the host's enqueue (a function that waits for the device inside
+    still counts the host time after that wait)."""
+    bases = base if isinstance(base, tuple) else (base,)
     times = []
     for _ in range(reps):
-        table = base.clone()
+        copies = [b.clone() for b in bases]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        fn(table, *args)
+        fn(*copies, *args)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -168,29 +193,18 @@ def main_path(torch):
     return launches
 
 
-def tick_breakdown(torch):
-    """Phase 3: where a tick of the main path goes.  The same loop as
-    phase 2, built through the builder with span telemetry on and under
-    torch.profiler: host span totals per stage, and the device's busy
-    time (kernels and copies) against the wall time of the run."""
+def _profiled(torch, label, reg, drive):
+    """Run `drive()` with span telemetry `reg` on and under
+    torch.profiler; print the host span totals per stage, and the
+    device's busy time (kernels and copies) against the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.api import MetricsHub, PipelineBuilder
-    from repro_torch.configs.paper_ingest import IngestConfig
-    from repro_torch.ingest.sources import BurstyTweetSource
     from repro_torch.kernels import build
-    from repro_torch.telemetry.spans import TelemetryRegistry
 
-    reg = TelemetryRegistry(enabled=True)
-    pipe = (PipelineBuilder(IngestConfig(), device="cuda")
-            .with_source(BurstyTweetSource(seed=0))
-            .with_metrics(MetricsHub(telemetry=reg)).build())
-    pipe.transform.telemetry = reg
-    pipe.sink.ingestor.telemetry = reg
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.run(max_ticks=MAIN_TICKS)
+        drive()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -202,13 +216,30 @@ def tick_breakdown(torch):
     ported = {name: {"ms": sum(ms for k, ms, _ in device if name in k),
                      "count": sum(c for k, _, c in device if name in k)}
               for name in build.kernel_names()}
-    print("breakdown", json.dumps({
+    print(label, json.dumps({
         "ticks": MAIN_TICKS, "wall_ms": wall_ms, "spans": spans,
         "device_busy_ms": busy_ms if device else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if device else "not measured",
         "ported_kernels_device": ported if device else "not measured",
         "top_device": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in device[:10]],
     }), flush=True)
+
+
+def tick_breakdown(torch):
+    """Phase 3: where a tick of the main path goes.  The same loop as
+    phase 2, built through the builder with span telemetry on."""
+    from repro_torch.api import MetricsHub, PipelineBuilder
+    from repro_torch.configs.paper_ingest import IngestConfig
+    from repro_torch.ingest.sources import BurstyTweetSource
+    from repro_torch.telemetry.spans import TelemetryRegistry
+
+    reg = TelemetryRegistry(enabled=True)
+    pipe = (PipelineBuilder(IngestConfig(), device="cuda")
+            .with_source(BurstyTweetSource(seed=0))
+            .with_metrics(MetricsHub(telemetry=reg)).build())
+    pipe.transform.telemetry = reg
+    pipe.sink.ingestor.telemetry = reg
+    _profiled(torch, "breakdown", reg, lambda: pipe.run(max_ticks=MAIN_TICKS))
 
 
 def cuda_vs_cpu(torch):
@@ -238,6 +269,181 @@ def cuda_vs_cpu(torch):
     if cg != cc or not np.array_equal(crg, crc) or not np.array_equal(mug, muc):
         raise AssertionError(f"cuda and cpu reports differ: {cg} vs {cc}")
     print(f"cuda vs cpu uncontrolled digest equal: {cg}", flush=True)
+
+
+def _sketch_keys(rng, n, dist):
+    """n uint64 node keys (int64 bits): uniform, or Zipf-skewed ranks
+    over a pool of 2^17 ids, which sends many lanes to the same cells."""
+    if dist == "uniform":
+        return rng.integers(1, 2**64 - 1, size=n, dtype=np.uint64).view(np.int64)
+    pool = _random_keys(rng, 1 << 17)
+    return pool[np.minimum(rng.zipf(ZIPF_A, size=n), pool.size) - 1]
+
+
+def sketch_vs_plain(torch, dev):
+    """Phase 5: sketch_scatter kernel vs its plain version, bit-equal,
+    and timed beside the three `index_add_` calls of the library."""
+    from repro_torch.kernels.sketch import sketch_scatter, sketch_scatter_ref
+    from repro_torch.query.sketch import node_hash
+
+    rng = np.random.default_rng(1)
+    rows = []
+    for D, W in SKETCH_SHAPES:
+        for n in SKETCH_LANES:
+            for dist in ("uniform", "zipf"):
+                keys = [torch.from_numpy(_sketch_keys(rng, n, dist)).to(dev) for _ in range(2)]
+                r, c = (node_hash(k, D, W) for k in keys)
+                cnt_np = rng.integers(1, 4, size=n).astype(np.int32)
+                cnt_np[rng.random(n) < 0.1] = 0
+                cnt = torch.from_numpy(cnt_np).to(dev)
+                # the arrays start non-zero, as in a running sketch
+                base = (torch.randint(0, 100, (D, W, W), dtype=torch.int32, device=dev),
+                        torch.randint(0, 100, (D, W), dtype=torch.int32, device=dev),
+                        torch.randint(0, 100, (D, W), dtype=torch.int32, device=dev))
+                got = sketch_scatter(*(b.clone() for b in base), r, c, cnt)
+                want = sketch_scatter_ref(*(b.clone() for b in base), r, c, cnt)
+                torch.cuda.synchronize()
+                err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+                if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"sketch_scatter kernel != plain: D={D} W={W} "
+                                         f"n={n} {dist} max_abs_err={err}")
+                # library: the three index_add_ calls on precomputed flat indices
+                depth = torch.arange(D, device=dev).unsqueeze(1)
+                rl, cl = r.long(), c.long()
+                flat = ((depth * (W * W) + rl * W + cl).reshape(-1),
+                        (depth * W + rl).reshape(-1), (depth * W + cl).reshape(-1))
+                vals = cnt.expand(D, -1).reshape(-1).contiguous()
+
+                def library(ew, od, idg):
+                    ew.view(-1).index_add_(0, flat[0], vals)
+                    od.view(-1).index_add_(0, flat[1], vals)
+                    idg.view(-1).index_add_(0, flat[2], vals)
+
+                # least bytes: r, c and cnt read once, and 4 B read plus
+                # 4 B written per distinct cell a counted lane touches
+                live = (cnt != 0).expand(D, -1).reshape(-1)
+                cells = sum(int(torch.unique(f[live]).numel()) for f in flat)
+                nbytes = 2 * D * n * 4 + n * 4 + 8 * cells
+                rows.append({
+                    "depth": D, "width": W, "lanes": n, "keys": dist,
+                    "counted_lanes": int((cnt != 0).sum()), "cells": cells,
+                    "max_abs_err": err,
+                    "ms": _time_ms(torch, sketch_scatter, base, (r, c, cnt), KERNEL_REPS),
+                    "plain_ms": _time_ms(torch, sketch_scatter_ref, base, (r, c, cnt),
+                                         KERNEL_REPS),
+                    "library_ms": _time_ms(torch, library, base, (), KERNEL_REPS),
+                    "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+                })
+                print("sketch", json.dumps(rows[-1]), flush=True)
+    print("sketch_scatter kernel == plain bit for bit (tolerance 0) at all "
+          f"{len(rows)} shapes", flush=True)
+    return rows
+
+
+def query_path(torch):
+    """Phase 6: the query CLI in live mode at the default deployment."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import query
+
+    build.launches.clear()
+    t0 = time.perf_counter()
+    out = query.run(QUERY_ARGV)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    qsink = out.pipe.sink
+    commits = [c for c in qsink.ingestor.commits if c.ok]
+    if not commits or qsink.commits != len(commits):
+        raise AssertionError(f"QuerySink absorbed {qsink.commits} of {len(commits)} commits")
+    if launches.get("sketch_scatter", 0) < qsink.commits:
+        raise AssertionError(f"expected a sketch_scatter launch per absorbed commit: "
+                             f"{launches} for {qsink.commits} commits")
+    if launches.get("fused_upsert", 0) != 2 * len(commits):
+        raise AssertionError(f"expected 2 upsert launches per commit: "
+                             f"{launches} for {len(commits)} commits")
+    snap, m = out.snapshot, qsink.maintainer
+    if not (out.code == 0 and int(snap.n_edges) > 0 and len(out.exact_w) > 0
+            and (out.est_w >= out.exact_w).all()):
+        raise AssertionError(f"query path: sketch below exact weight or empty snapshot: "
+                             f"{list(zip(out.exact_w.tolist(), out.est_w.tolist()))}")
+    print(f"query path: ticks={MAIN_TICKS} commits={len(commits)} "
+          f"wall_ms_per_tick={wall_s * 1e3 / MAIN_TICKS} "
+          f"run_wall_ms_per_tick={out.report.wall_s * 1e3 / MAIN_TICKS} "
+          f"snapshot_serve_ms={out.serve_ms} full_builds={m.full_builds} "
+          f"delta_applies={m.delta_applies} "
+          f"filter_sketch_updates={launches['sketch_scatter'] - qsink.commits} "
+          f"launches={launches}", flush=True)
+    return launches
+
+
+def query_breakdown(torch):
+    """Phase 7: where a tick of the query path goes (phase 6's run with
+    spans on and under torch.profiler)."""
+    from repro_torch.launch import query
+    from repro_torch.telemetry.spans import TelemetryRegistry
+
+    reg = TelemetryRegistry(enabled=True)
+    _profiled(torch, "query breakdown", reg, lambda: query.run(QUERY_ARGV, telemetry=reg))
+
+
+def query_cuda_vs_cpu(torch):
+    """Phase 8: the uncontrolled query loop on the card and on the host:
+    equal stores, sketches, snapshots and answers."""
+    from repro_torch import convert
+    from repro_torch.api import PipelineBuilder
+    from repro_torch.configs.paper_ingest import IngestConfig
+    from repro_torch.ingest.sources import BurstyTweetSource
+    from repro_torch.query import (
+        degree_distribution, edge_lookup, k_hop, top_k_degree, triangle_count)
+
+    def numpy(x):
+        return x.cpu().numpy()
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        events = []
+        cfg = IngestConfig(store_nodes=1 << 12, store_edges=1 << 14)
+        b = (PipelineBuilder(cfg, device=device).with_source(BurstyTweetSource(seed=0))
+             .uncontrolled().with_sketch(width=512).with_query_sink(width=512, exact_topk=3)
+             .on_event(lambda ev: events.append(ev.payload) if ev.kind == "sketch" else None))
+        pipe = b.build()
+        pipe.run(max_ticks=40)
+        snap = pipe.sink.snapshot()
+        m = pipe.sink.maintainer
+        live = snap.edge_row < snap.node_cap
+        s_keys = snap.node_key[snap.edge_row[live].long()]
+        d_keys = snap.node_key[snap.edge_col[live].long()]
+        top_keys, top_degs = top_k_degree(snap, 10)
+        arrays = {
+            **{f"store.{k}": v for k, v in convert.store_to_numpy(pipe.store).items()},
+            **{f"filter_sketch.{k}": v
+               for k, v in convert.sketch_to_numpy(b.sketch_stage.sketch).items()},
+            **{f"commit_sketch.{k}": v
+               for k, v in convert.sketch_to_numpy(pipe.sink.sketch).items()},
+            **{f"snapshot.{k}": v for k, v in convert.snapshot_to_numpy(snap).items()},
+            "degree_distribution": numpy(degree_distribution(snap)),
+            "top_k_degree.keys": numpy(top_keys), "top_k_degree.degrees": numpy(top_degs),
+            "edge_lookup": numpy(edge_lookup(snap, s_keys, d_keys)),
+        }
+        for hops in (1, 2, 3):
+            for directed in (False, True):
+                arrays[f"k_hop.{hops}.{directed}"] = numpy(
+                    k_hop(snap, top_keys[:2], hops=hops, directed=directed))
+        scalars = {"triangles": triangle_count(snap), "full_builds": m.full_builds,
+                   "delta_applies": m.delta_applies, "commits": pipe.sink.commits,
+                   "live_edges": int(live.sum()), "events": events}
+        runs[device] = arrays, scalars
+    (ag, sg), (ac, sc) = runs["cuda"], runs["cpu"]
+    for name in ag:
+        if not np.array_equal(ag[name], ac[name]):
+            raise AssertionError(f"cuda and cpu query loops differ in {name}")
+    if sg != sc:
+        raise AssertionError(f"cuda and cpu query loops differ: {sg} vs {sc}")
+    if not (sg["delta_applies"] > 0 and sg["live_edges"] > 0 and sg["events"]):
+        raise AssertionError(f"query loop did not exercise the path: {sg}")
+    print("cuda vs cpu query loop equal: " + json.dumps(
+        {k: v for k, v in sg.items() if k != "events"} | {"sketch_events": len(sg["events"])}),
+        flush=True)
 
 
 def main():
@@ -273,10 +479,17 @@ def main():
     launches = main_path(torch)
     tick_breakdown(torch)
     cuda_vs_cpu(torch)
+    sketch_rows = sketch_vs_plain(torch, dev)
+    query_launches = query_path(torch)
+    query_breakdown(torch)
+    query_cuda_vs_cpu(torch)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["load"] == 0.0
                and r["probes"] == 32)
+    # the query path's widest sketch update, with skewed keys as tweets have
+    sref = next(r for r in sketch_rows if r["width"] == 512 and r["lanes"] == 8_192
+                and r["keys"] == "zipf")
     kernels = [{
         "name": "fused_upsert", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_upsert.cu",
@@ -286,6 +499,16 @@ def main():
         "ms": ref["ms"], "plain_ms": ref["plain_ms"], "bound_ms": ref["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "shape": {k: ref[k] for k in ("sweep", "cap", "lanes", "load", "probes")},
+    }, {
+        "name": "sketch_scatter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sketch_scatter.cu",
+        "replaces": "src/repro/kernels/sketch.py:63",
+        "launches": query_launches["sketch_scatter"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in sketch_rows),
+        "ms": sref["ms"], "plain_ms": sref["plain_ms"], "bound_ms": sref["bound_ms"],
+        "bound_by": "bytes", "library_ms": sref["library_ms"],
+        "library": "three index_add_ calls",
+        "shape": {k: sref[k] for k in ("depth", "width", "lanes", "keys")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

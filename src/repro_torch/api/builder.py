@@ -1,5 +1,7 @@
 """`PipelineBuilder` — the fluent facade over the composable API.
-Counterpart of `repro.api.builder` (the core methods).
+Counterpart of `repro.api.builder` (the core methods, extra record
+stages, and the query path: the sketch stage, the query sink and
+sketch-guided control).
 
     pipe = (PipelineBuilder(IngestConfig(cpu_max=0.55), device="cuda")
             .with_source(BurstyTweetSource(seed=0))
@@ -27,6 +29,10 @@ from repro_torch.configs.paper_ingest import IngestConfig
 from repro_torch.core.buffer import BufferController
 from repro_torch.core.transform import MappingSpec
 from repro_torch.device import resolve
+from repro_torch.query.stage import QuerySink, SketchStage
+
+# placeholder in the stage list for a build-time-constructed SketchStage
+_SKETCH_SLOT = object()
 
 
 class PipelineBuilder:
@@ -47,6 +53,11 @@ class PipelineBuilder:
         self._spill_dir: Optional[str] = None
         self._metrics: Optional[MetricsHub] = None
         self._hooks = []
+        self._stages = []
+        self._sketch_stage: Optional[SketchStage] = None
+        self._sketch_kw = {}
+        self._query_sink_opts = None
+        self._sketch_guided = False
 
     # ---- parts ----
     def with_source(self, source) -> "PipelineBuilder":
@@ -67,6 +78,46 @@ class PipelineBuilder:
 
     def with_transform(self, transform: TransformStage) -> "PipelineBuilder":
         self._transform = transform
+        return self
+
+    def with_stage(self, stage) -> "PipelineBuilder":
+        """Append an extra Stage-protocol record stage (runs after the
+        filter, before the buffer), e.g. a `repro_torch.query.SketchStage`."""
+        self._stages.append(stage)
+        return self
+
+    def with_sketch(self, sketch_stage: Optional[SketchStage] = None,
+                    **kw) -> "PipelineBuilder":
+        """Keep an ingestion-time graph sketch: adds a `SketchStage`
+        after the filter.  When no stage is passed, one is made at build
+        time on the builder's device, inheriting its mapping and the
+        config's max_edges_per_batch (so the sketch observes exactly the
+        edges the transform commits); read it back via `.sketch_stage`."""
+        self._sketch_stage = sketch_stage
+        self._sketch_kw = dict(kw)
+        self._stages.append(_SKETCH_SLOT)
+        return self
+
+    @property
+    def sketch_stage(self) -> Optional[SketchStage]:
+        """The `SketchStage` added by `with_sketch` (after build())."""
+        return self._sketch_stage
+
+    def with_query_sink(self, **kw) -> "PipelineBuilder":
+        """Wrap the sink in a `repro_torch.query.QuerySink` at build
+        time: a commit-consistent sketch, an incrementally maintained
+        snapshot and live "sketch" MetricsHub events.  Keyword args go
+        to `QuerySink` (depth, width, answer_every, top_k, exact_topk,
+        ...)."""
+        self._query_sink_opts = dict(kw)
+        return self
+
+    def sketch_guided(self, flag: bool = True) -> "PipelineBuilder":
+        """Sketch-guided control: feed the QuerySink's live heavy-hitter
+        signal back into the Algorithm-2 controller through the
+        MetricsHub "sketch" events.  Implies `with_query_sink()` when
+        none was configured."""
+        self._sketch_guided = flag
         return self
 
     def with_consumer(self, consumer) -> "PipelineBuilder":
@@ -113,6 +164,23 @@ class PipelineBuilder:
         return self
 
     # ---- assembly ----
+    def _resolve_stages(self):
+        """Materialise the sketch slot with the builder's mapping, cap
+        and device."""
+        stages = []
+        for st in self._stages:
+            if st is _SKETCH_SLOT:
+                if self._sketch_stage is None:
+                    kw = dict(self._sketch_kw)
+                    kw.setdefault("mapping", self._mapping)
+                    kw.setdefault("max_edges_per_batch", self.cfg.max_edges_per_batch)
+                    kw.setdefault("device", self.device)
+                    self._sketch_stage = SketchStage(**kw)
+                stages.append(self._sketch_stage)
+            else:
+                stages.append(st)
+        return stages
+
     def build(self) -> StreamPipeline:
         dev = self.device
         filt = self._filter or FilterStage(self._keywords)
@@ -132,9 +200,22 @@ class PipelineBuilder:
         metrics = self._metrics or MetricsHub()
         for h in self._hooks:
             metrics.subscribe(h)
+        qs_opts = self._query_sink_opts
+        if self._sketch_guided and qs_opts is None:
+            qs_opts = {}  # sketch events need a QuerySink
+        if qs_opts is not None:
+            sink = QuerySink(sink, hub=metrics, **qs_opts)
         buffer_stage = BufferControlStage(
             controller=self._controller, cfg=self.cfg,
             spill_dir=self._spill_dir, device=dev)
+        if self._sketch_guided:
+            controller = buffer_stage.controller
+
+            def _guide(ev):
+                if ev.kind == "sketch":
+                    controller.observe_sketch(ev.payload)
+
+            metrics.subscribe(_guide)
         return StreamPipeline(
             cfg=self.cfg,
             source=self._source,
@@ -145,6 +226,7 @@ class PipelineBuilder:
             sink=sink,
             uncontrolled=self._uncontrolled,
             metrics=metrics,
+            stages=self._resolve_stages(),
         )
 
     def run(self, max_ticks: int = 300):

@@ -1,12 +1,15 @@
 """State carried between the reference (JAX) package and the port.
 
-The reference's `GraphStore` holds uint64 keys; the port's holds the
-same bits as int64.  These functions take and give plain numpy arrays
-(`np.asarray` of the reference's arrays), so the port never imports
-the reference:
+The reference holds uint64 keys; the port holds the same bits as int64.
+These functions take and give plain numpy arrays (`np.asarray` of the
+reference's arrays), so the port never imports the reference:
 
   * `store_from_numpy` / `store_to_numpy`: a store's arrays, by field
     name, in both directions (key fields as uint64 on the numpy side);
+  * `sketch_from_numpy` / `sketch_to_numpy`: the same for a
+    `GraphSketch` (`hh_keys` as uint64);
+  * `snapshot_to_numpy`: a `GraphSnapshot`'s arrays (`node_key` as
+    uint64), to compare with the reference's;
   * `controller_from_numpy`: the two RLS states (theta, P, n) of a
     `PerfMon.state()` dict, into a port `BufferController`.
 """
@@ -20,13 +23,15 @@ import torch
 
 from repro_torch.core.buffer import rls_from_numpy
 from repro_torch.graphstore.store import GraphStore
+from repro_torch.query.sketch import GraphSketch
+from repro_torch.query.snapshot import GraphSnapshot
 
-KEY_FIELDS = ("node_keys", "edge_keys", "edge_src", "edge_dst")
+KEY_FIELDS = ("node_keys", "edge_keys", "edge_src", "edge_dst", "hh_keys", "node_key")
 
 
-def store_from_numpy(arrays: Mapping[str, np.ndarray],
-                     device: Union[str, torch.device] = "cuda") -> GraphStore:
-    """A port store on `device` from numpy arrays keyed by field name."""
+def _from_numpy(cls, arrays: Mapping[str, np.ndarray], device):
+    """A `cls` on `device` from numpy arrays keyed by field name: key
+    fields as int64 bits, every other field as int32."""
     def tensor(name):
         a = np.array(arrays[name])  # a contiguous copy; 0-d stays 0-d
         if name in KEY_FIELDS:
@@ -35,16 +40,42 @@ def store_from_numpy(arrays: Mapping[str, np.ndarray],
             a = a.astype(np.int32)
         return torch.from_numpy(a).to(device)
 
-    return GraphStore(**{f.name: tensor(f.name) for f in dataclasses.fields(GraphStore)})
+    return cls(**{f.name: tensor(f.name) for f in dataclasses.fields(cls)})
+
+
+def _to_numpy(obj) -> Dict[str, np.ndarray]:
+    out = {}
+    for f in dataclasses.fields(obj):
+        a = getattr(obj, f.name).cpu().numpy()
+        out[f.name] = a.view(np.uint64) if f.name in KEY_FIELDS else a
+    return out
+
+
+def store_from_numpy(arrays: Mapping[str, np.ndarray],
+                     device: Union[str, torch.device] = "cuda") -> GraphStore:
+    """A port store on `device` from numpy arrays keyed by field name."""
+    return _from_numpy(GraphStore, arrays, device)
 
 
 def store_to_numpy(store: GraphStore) -> Dict[str, np.ndarray]:
     """The port store's arrays as numpy, key fields as uint64."""
-    out = {}
-    for f in dataclasses.fields(GraphStore):
-        a = getattr(store, f.name).cpu().numpy()
-        out[f.name] = a.view(np.uint64) if f.name in KEY_FIELDS else a
-    return out
+    return _to_numpy(store)
+
+
+def sketch_from_numpy(arrays: Mapping[str, np.ndarray],
+                      device: Union[str, torch.device] = "cuda") -> GraphSketch:
+    """A port sketch on `device` from numpy arrays keyed by field name."""
+    return _from_numpy(GraphSketch, arrays, device)
+
+
+def sketch_to_numpy(sketch: GraphSketch) -> Dict[str, np.ndarray]:
+    """The port sketch's arrays as numpy, `hh_keys` as uint64."""
+    return _to_numpy(sketch)
+
+
+def snapshot_to_numpy(snap: GraphSnapshot) -> Dict[str, np.ndarray]:
+    """The port snapshot's arrays as numpy, `node_key` as uint64."""
+    return _to_numpy(snap)
 
 
 def controller_from_numpy(controller, perfmon_state: Mapping) -> None:

@@ -23,7 +23,7 @@ import dataclasses
 import os
 import pickle
 import tempfile
-from typing import Callable, Deque, List, Optional, Tuple, Union
+from typing import Callable, Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -68,6 +68,10 @@ def rls_from_numpy(s, device) -> P.RLSState:
 class PerfMon:
     """PERFMON (Alg. 2 lines 16-23): content stats + load predictions."""
 
+    # weight of the sketch's diversity hint when blended into rho (the
+    # window mean stays the anchor; the sketch refines it)
+    SKETCH_RHO_WEIGHT = 0.5
+
     def __init__(self, cfg: IngestConfig, device: torch.device):
         self.cfg = cfg
         self.device = device
@@ -80,6 +84,9 @@ class PerfMon:
         # of the fuller table, and inserts dropped by the last commit
         self.table_pressure = 0.0
         self.dropped_inserts = 0
+        # sketch-guided diversity hint (None until a "sketch" event is
+        # observed; then blended into predict()'s rho)
+        self.sketch_rho: Optional[float] = None
 
     # ---- signal ingestion ----
     def observe_rate(self, t: float, records: float):
@@ -93,6 +100,12 @@ class PerfMon:
         factor and the inserts its (already escalated) probing dropped."""
         self.table_pressure = float(pressure)
         self.dropped_inserts = int(dropped)
+
+    def observe_sketch(self, concentration: float):
+        """Sketch-guided control: the heavy-hitter mass fraction of the
+        ingestion-time sketch, as a diversity hint rho ~ 1 - concentration
+        that `predict` blends in."""
+        self.sketch_rho = float(np.clip(1.0 - concentration, 0.0, 1.0))
 
     def observe_bucket(self, rho: float, density: float, beta_e: float):
         self.rho_hist.append(float(rho))
@@ -120,6 +133,9 @@ class PerfMon:
     def predict(self, edge_table_size: float, density: float) -> Tuple[float, float, float]:
         """Returns (beta_e, mu_exp, slope) — Alg. 2 line 2."""
         rho = float(np.mean(self.rho_hist)) if self.rho_hist else 1.0
+        if self.sketch_rho is not None:
+            w = self.SKETCH_RHO_WEIGHT
+            rho = (1.0 - w) * rho + w * self.sketch_rho
         beta_e = float(P.predict_beta_e(self.beta_model, rho, density))
         beta_e = max(beta_e, float(edge_table_size))
         mu_prev = self.mu_hist[-1]
@@ -138,6 +154,7 @@ class PerfMon:
             "rho_hist": list(self.rho_hist),
             "table_pressure": self.table_pressure,
             "dropped_inserts": self.dropped_inserts,
+            "sketch_rho": self.sketch_rho,
         }
 
     def restore_state(self, s: dict) -> None:
@@ -150,6 +167,7 @@ class PerfMon:
         self.rho_hist = collections.deque(s["rho_hist"], maxlen=self.rho_hist.maxlen)
         self.table_pressure = float(s["table_pressure"])
         self.dropped_inserts = int(s["dropped_inserts"])
+        self.sketch_rho = s.get("sketch_rho")
 
 
 class SpillStore:
@@ -271,6 +289,17 @@ class BufferController:
         if self.on_decision is not None:
             self.on_decision(dec)
         return dec
+
+    def observe_sketch(self, payload: Dict):
+        """Policy hook for MetricsHub "sketch" events (QuerySink): the
+        mass the top-k nodes hold of everything the sketch absorbed, fed
+        to PerfMon as a diversity hint (sketch-guided control)."""
+        absorbed = float(payload.get("absorbed", 0) or 0)
+        hh = payload.get("hh_counts") or []
+        if absorbed <= 0 or not len(hh):
+            return
+        conc = float(np.clip(float(np.sum(hh)) / absorbed, 0.0, 1.0))
+        self.perfmon.observe_sketch(conc)
 
     def record(self, sample: PerfSample):
         self.trace.append(sample)

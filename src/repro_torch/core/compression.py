@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 SIGN_BIT = -(1 << 63)  # int64 with only bit 63 set
@@ -44,6 +45,16 @@ def flip_sign(k: torch.Tensor) -> torch.Tensor:
 def lsr(x: torch.Tensor, s: int) -> torch.Tensor:
     """Logical right shift of the uint64 bit pattern in int64 `x`."""
     return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def key_tensor(keys, device) -> torch.Tensor:
+    """Keys as an int64 tensor of uint64 bits on `device`: a tensor is
+    moved there, anything else (numpy, a list of ints) goes through a
+    uint64 numpy array."""
+    if isinstance(keys, torch.Tensor):
+        return keys.to(device=device, dtype=torch.int64)
+    a = np.ascontiguousarray(np.asarray(keys).astype(np.uint64).view(np.int64))
+    return torch.from_numpy(a).to(device)
 
 
 _C1 = as_int64(0x9E3779B97F4A7C15)

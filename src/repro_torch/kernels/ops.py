@@ -3,8 +3,8 @@
 
 Each op dispatches on the device of its tensors: a CUDA tensor launches
 the hand-written kernel, a CPU tensor runs the plain PyTorch version.
-This slice carries one op.
 """
+from repro_torch.kernels.sketch import sketch_scatter
 from repro_torch.kernels.upsert import fused_upsert
 
-__all__ = ["fused_upsert"]
+__all__ = ["fused_upsert", "sketch_scatter"]

@@ -63,11 +63,24 @@ def test_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch, tmp_pa
     assert pipe.store.device.type == "cpu" and rep.total_records > 0
 
 
-@pytest.mark.parametrize("entry", ["builder", "sink", "transform", "controller"])
+def test_query_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch):
+    from repro_torch.launch import query
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        query.main(["--dryrun", "--ticks", "2"])
+    out = query.run(["--dryrun", "--device", "cpu", "--mode", "live", "--query-every", "5"])
+    assert out.code == 0 and out.snapshot.node_key.device.type == "cpu"
+    assert int(out.snapshot.n_edges) > 0 and (out.est_w >= out.exact_w).all()
+
+
+@pytest.mark.parametrize("entry", ["builder", "sink", "transform", "controller",
+                                   "sketch_stage", "sketch"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     from repro_torch.api import GraphStoreSink, PipelineBuilder, TransformStage
     from repro_torch.configs.paper_ingest import IngestConfig
     from repro_torch.core.buffer import BufferController
+    from repro_torch.query import SketchStage, init_sketch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     make = {
@@ -75,6 +88,8 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "sink": lambda: GraphStoreSink(node_cap=64, edge_cap=64),
         "transform": lambda: TransformStage(),
         "controller": lambda: BufferController(IngestConfig()),
+        "sketch_stage": lambda: SketchStage(),
+        "sketch": lambda: init_sketch(),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
