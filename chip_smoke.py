@@ -27,11 +27,36 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
   7. runs that query path again with spans on and under torch.profiler;
   8. runs the uncontrolled query loop (seed 0, 40 ticks, 2^12/2^14
      store, W=512) on the card and on the host and requires equal
-     stores, sketches, snapshots and query answers.
+     stores, sketches, snapshots and query answers;
+  9. holds the traffic-id sampler kernel against its plain version on
+     the card, bit for bit, for every registry scenario at burst levels
+     0 and 1, at the workload path's 2,048-record block and at 65,536
+     records, for two seeds and a counter start near the uint32 wrap,
+     and times both;
+ 10. drives the workload path, `repro_torch.launch.workload.run`, at its
+     default deployment with GraphZip compression (`flash_crowd`, 240
+     ticks, seed 0, a 2^20-node, 2^21-edge store, a 4,096-entry
+     dictionary), with the launch counters set to 0 just before and
+     read just after;
+ 11. runs that path again, from `run_scenario`'s own builder, with
+     spans on and under torch.profiler, counts the mined batches of
+     each edge-table size and keeps the largest;
+ 12. holds the pattern-miner kernel against its plain version on the
+     card, bit for bit, at 64, 8,192 and 65,536 edges (random batches
+     with invalid lanes, and batches built to hold star bursts, cascade
+     chains and hot edges) and on the batch phase 11 kept, and times
+     both;
+ 13. compares CUDA with CPU at the workload CLI's `--dryrun` size: the
+     sampled lanes and tick counts that differ (printed), then, on one
+     shared record stream, the uncontrolled loop with compression on
+     both devices (equal stores, dictionaries and reports), and on the
+     card the raw and the compressed loop (byte-identical stores).
 Any failure raises; no phase is caught.  It prints the card, the build
-time, a `kernels` JSON line and, last, the `ok` JSON line.  It exits
-non-zero without a CUDA device or without the port beside it.
+time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
+JSON line.  It exits non-zero without a CUDA device or without the port
+beside it.
 """
+import copy
 import json
 import statistics
 import subprocess
@@ -57,6 +82,12 @@ MAIN_TICKS = 120
 SKETCH_SHAPES = ((4, 256), (4, 512))  # (D, W): the CLI's dryrun and default widths
 SKETCH_LANES = (1_024, 8_192)  # edge-table caps of a sketch update on the query path
 ZIPF_A = 1.3
+TRAFFIC_LANES = (2_048, 65_536)  # the workload source's block, and a large one
+TRAFFIC_SEEDS = ((0, 0), (7, 12_345), (0, 2**32 - 5_000))  # (seed, ctr0), the last wraps
+MINE_LANES = (64, 8_192, 65_536)  # a small batch, the path's edge-table cap, the largest
+WORKLOAD_ARGV = ["--scenario", "flash_crowd", "--dict-compress"]  # 240 ticks, 2^20/2^21
+DRYRUN_TICKS = 60
+H100_FP32_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA H100 SXM data sheet
 QUERY_ARGV = ["--ticks", str(MAIN_TICKS), "--mode", "live", "--depth", "4", "--width", "512",
               "--node-cap", str(1 << 20), "--edge-cap", str(1 << 21)]
 
@@ -193,7 +224,7 @@ def main_path(torch):
     return launches
 
 
-def _profiled(torch, label, reg, drive):
+def _profiled(torch, label, reg, drive, ticks=MAIN_TICKS):
     """Run `drive()` with span telemetry `reg` on and under
     torch.profiler; print the host span totals per stage, and the
     device's busy time (kernels and copies) against the wall time."""
@@ -217,7 +248,7 @@ def _profiled(torch, label, reg, drive):
                      "count": sum(c for k, _, c in device if name in k)}
               for name in build.kernel_names()}
     print(label, json.dumps({
-        "ticks": MAIN_TICKS, "wall_ms": wall_ms, "spans": spans,
+        "ticks": ticks, "wall_ms": wall_ms, "spans": spans,
         "device_busy_ms": busy_ms if device else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if device else "not measured",
         "ported_kernels_device": ported if device else "not measured",
@@ -446,6 +477,281 @@ def query_cuda_vs_cpu(torch):
         flush=True)
 
 
+def _traffic_bound(n):
+    """(least ms, what bounds it) for one traffic_ids block: 5 x 4 bytes
+    written per record and 36 bytes of parameters read, against about 36
+    float32 operations per record (the three Zipf ranks with pow counted
+    as one operation, the uniforms, the hot-tag and cascade products)."""
+    bytes_s = (20 * n + 36) / H100_BYTES_PER_S
+    ops_s = 36 * n / H100_FP32_PER_S
+    return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
+
+
+def traffic_vs_plain(torch, dev):
+    """Phase 9: traffic_ids kernel vs its plain version, bit-equal."""
+    from repro_torch.kernels.sampler import traffic_ids, traffic_ids_ref
+    from repro_torch.workloads.scenarios import list_scenarios
+
+    rows = []
+    for scn in list_scenarios():
+        ip = torch.from_numpy(scn.iparams()).to(dev)
+        for burst in (0.0, 1.0):
+            fp = torch.from_numpy(scn.fparams(burst)).to(dev)
+            for n in TRAFFIC_LANES:
+                for seed, ctr0 in TRAFFIC_SEEDS:
+                    args = (seed, ctr0, n, ip, fp)
+                    got, want = traffic_ids(*args), traffic_ids_ref(*args)
+                    torch.cuda.synchronize()
+                    err = max(float((g.double() - w.double()).abs().max())
+                              for g, w in zip(got, want))
+                    if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(f"traffic_ids kernel != plain: {scn.name} "
+                                             f"burst={burst} n={n} seed={seed} ctr0={ctr0} "
+                                             f"max_abs_err={err}")
+                    row = {"scenario": scn.name, "burst": burst, "lanes": n, "seed": seed,
+                           "ctr0": ctr0, "max_abs_err": err}
+                    if (seed, ctr0) == TRAFFIC_SEEDS[0]:
+                        bound_ms, bound_by = _traffic_bound(n)
+                        row.update(ms=_time_ms(torch, traffic_ids, (), args, KERNEL_REPS),
+                                   plain_ms=_time_ms(torch, traffic_ids_ref, (), args,
+                                                     PLAIN_REPS),
+                                   bound_ms=bound_ms, bound_by=bound_by)
+                    rows.append(row)
+                    print("traffic", json.dumps(row), flush=True)
+    print("traffic_ids kernel == plain bit for bit (tolerance 0) at all "
+          f"{len(rows)} shapes", flush=True)
+    return rows
+
+
+def workload_path(torch):
+    """Phase 10: the workload CLI at its default deployment with
+    --dict-compress."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import workload
+
+    seen = {"ticks_with_records": 0, "encodes": 0, "commits": 0}
+
+    def count(ev):
+        if ev.kind == "tick" and ev.payload["raw"] > 0:
+            seen["ticks_with_records"] += 1
+        elif ev.kind in ("commit", "commit-failed"):
+            seen["encodes"] += 1
+            seen["commits"] += ev.kind == "commit"
+
+    build.launches.clear()
+    t0 = time.perf_counter()
+    code, rep = workload.run(WORKLOAD_ARGV, on_event=count)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    want = {"pattern_mine": seen["encodes"],
+            "fused_upsert": 3 * seen["commits"]}  # 2 store sweeps + 1 dictionary admit
+    # one sampled block per tick with records; the loop also reads the
+    # tick after its last, as the reference's does, which may add one
+    extra = launches.get("traffic_ids", 0) - seen["ticks_with_records"]
+    if code != 0 or extra not in (0, 1) or any(launches.get(k, 0) != v
+                                               for k, v in want.items()):
+        raise AssertionError(f"workload path launches {launches}, expected {want} and "
+                             f"{seen['ticks_with_records']} or one more traffic_ids")
+    if not (rep.total_records > 0 and rep.pattern_refs > 0 and np.isfinite(rep.mu_mean)
+            and rep.store_nodes > 0 and rep.store_edges > 0):
+        raise AssertionError(f"workload path produced no references or no result: "
+                             f"{rep.summary()}")
+    print(f"workload path: ticks={rep.ticks} records={rep.total_records} "
+          f"commits={seen['commits']} wall_s={wall_s} "
+          f"records_per_wall_s={rep.total_records / wall_s} "
+          f"run_records_per_wall_s={rep.records_per_wall_s} "
+          f"wall_ms_per_tick={wall_s * 1e3 / rep.ticks} "
+          f"commit_ms_mean={rep.commit_ms_mean} pattern_refs={rep.pattern_refs} "
+          f"dict_hit_rate={rep.dict_hit_rate} launches={launches}", flush=True)
+    return launches
+
+
+def workload_breakdown(torch):
+    """Phase 11: where a tick of the workload path goes.  Phase 10's
+    deployment from `run_scenario`'s own builder, with spans on and
+    under torch.profiler; keeps the largest batch the miner saw (a
+    reference, no copy) and counts the batches of each edge-table size."""
+    from repro_torch.api import MetricsHub
+    from repro_torch.telemetry.spans import TelemetryRegistry
+    from repro_torch.workloads import get_scenario, scenario_builder
+
+    scn = get_scenario("flash_crowd")
+    reg = TelemetryRegistry(enabled=True)
+    b, _, _ = scenario_builder(scn, dict_compress=True, device="cuda")
+    pipe = b.with_metrics(MetricsHub(telemetry=reg)).build()
+    pipe.transform.telemetry = reg
+    pipe.sink.ingestor.telemetry = reg
+    dstage = b.dictionary_stage
+    rewrite = dstage.rewrite
+    sizes = {}
+    kept = {"et": None}
+
+    def keep_largest(et):
+        n = et.src.shape[0]
+        sizes[n] = sizes.get(n, 0) + 1
+        if kept["et"] is None or n > kept["et"].src.shape[0]:
+            kept["et"] = et
+        return rewrite(et)
+
+    dstage.rewrite = keep_largest
+    _profiled(torch, "workload breakdown", reg, lambda: pipe.run(max_ticks=scn.ticks),
+              ticks=scn.ticks)
+    print("workload mined batches by edge-table size:",
+          json.dumps({str(n): c for n, c in sorted(sizes.items())}), flush=True)
+    et = kept["et"]
+    return (et.src, et.dst, et.etype, et.count, et.edge_valid, dstage.star_min,
+            dstage.hot_min)
+
+
+def _mine_batch(torch, rng, n, kind):
+    """A batch for the miner: random ids with ~20% invalid lanes, or the
+    same with star bursts, cascade chains and hot edges planted."""
+    pool = np.unique(rng.integers(1, 2**64 - 1, size=max(n // 2, 8), dtype=np.uint64))
+    pool[: pool.size // 2] >>= np.uint64(40)  # half packed, half hashed keys
+    src, dst = pool[rng.integers(0, pool.size, n)], pool[rng.integers(0, pool.size, n)]
+    et = rng.integers(0, 3, n).astype(np.int32)
+    count = rng.integers(1, 3, n).astype(np.int32)
+    valid = rng.random(n) >= 0.2
+    if kind == "patterned":
+        lanes = iter(rng.permutation(n))
+        for _ in range(n // 32):
+            hub, e = pool[rng.integers(pool.size)], rng.integers(3)
+            for _ in range(5):  # a star, out or in
+                i = next(lanes)
+                if rng.random() < 0.5:
+                    src[i] = hub
+                else:
+                    dst[i] = hub
+                et[i], valid[i] = e, True
+            chain = pool[rng.integers(0, pool.size, 3)]
+            for a, b in zip(chain, chain[1:]):
+                i = next(lanes)
+                src[i], dst[i], valid[i] = a, b, True
+            i = next(lanes)
+            count[i], valid[i] = 4, True
+    return tuple(torch.from_numpy(x) for x in (src.view(np.int64), dst.view(np.int64), et,
+                                               count, valid))
+
+
+def mine_vs_plain(torch, dev, real_batch):
+    """Phase 12: pattern_mine kernel vs its plain version, bit-equal."""
+    from repro_torch.kernels.pattern_mine import pattern_mine, pattern_mine_ref
+
+    rng = np.random.default_rng(2)
+    cases = [(kind, tuple(t.to(dev) for t in _mine_batch(torch, rng, n, kind)) + (4, 2))
+             for n in MINE_LANES for kind in ("random", "patterned")]
+    cases.append(("path", real_batch))
+    rows = []
+    for kind, args in cases:
+        got, want = pattern_mine(*args), pattern_mine_ref(*args)
+        torch.cuda.synchronize()
+        err = max(int((g - w).abs().max()) for g, w in zip(got[:3], want[:3]))
+        err = max(err, int((got[3] != want[3]).sum()))
+        if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"pattern_mine kernel != plain: {kind} n={args[0].shape[0]} "
+                                 f"max_abs_err={err}")
+        n = args[0].shape[0]
+        nbytes = 45 * n  # src, dst 8 B, etype, count 4 B, valid 1 B read; 3 x 4 + 8 B written
+        rows.append({"batch": kind, "lanes": n, "valid": int(args[4].sum()),
+                     "flagged": int((want[2] != 0).sum()), "max_abs_err": err,
+                     "ms": _time_ms(torch, pattern_mine, (), args, KERNEL_REPS),
+                     "plain_ms": _time_ms(torch, pattern_mine_ref, (), args, PLAIN_REPS),
+                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+        print("mine", json.dumps(rows[-1]), flush=True)
+    print("pattern_mine kernel == plain bit for bit (tolerance 0) at all "
+          f"{len(rows)} batches", flush=True)
+    return rows
+
+
+def _stream(device, ticks):
+    from repro_torch.workloads import ScenarioSource
+
+    src = ScenarioSource("flash_crowd", seed=0, device=device)
+    return [(t.t, t.records) for t, _ in zip(src.ticks(), range(ticks))]
+
+
+def _replay_loop(device, stream, compress):
+    """The uncontrolled loop with the harness's consumer on `stream`."""
+    from repro_torch.api import PipelineBuilder
+    from repro_torch.configs.paper_ingest import IngestConfig
+    from repro_torch.ingest.sources import StreamTick
+
+    b = (PipelineBuilder(IngestConfig(store_nodes=1 << 12, store_edges=1 << 14),
+                         device=device)
+         .simulated_consumer(speed=0.5).uncontrolled())
+    if compress:
+        b = b.with_compression(capacity=4096)
+    pipe = b.build()
+    rep = pipe.run((StreamTick(t, copy.deepcopy(r)) for t, r in stream), max_ticks=len(stream))
+    return pipe, rep, b.dictionary_stage
+
+
+def workload_cuda_vs_cpu(torch):
+    """Phase 13: the workload path on the card against the host."""
+    from repro_torch import convert
+    from repro_torch.kernels.sampler import traffic_ids, traffic_ids_ref
+    from repro_torch.workloads import rate_trajectory
+    from repro_torch.workloads.scenarios import get_scenario
+
+    scn = get_scenario("flash_crowd")
+    ip = {d: torch.from_numpy(scn.iparams()).to(d) for d in ("cuda", "cpu")}
+    lanes = differ = 0
+    for burst in (0.0, 0.5, 1.0):
+        fp = {d: torch.from_numpy(scn.fparams(burst)).to(d) for d in ("cuda", "cpu")}
+        for block in range(DRYRUN_TICKS):
+            ctr0 = (block * 2048 * 8) & 0xFFFFFFFF
+            g = traffic_ids(0, ctr0, 2048, ip["cuda"], fp["cuda"])
+            w = traffic_ids_ref(0, ctr0, 2048, ip["cpu"], fp["cpu"])
+            differ += sum(int((a.cpu() != b).sum()) for a, b in zip(g, w))
+            lanes += 2048
+    base = scn.base_rate
+    args = (0, DRYRUN_TICKS, 0, 0.0, base, scn.noise_frac, scn.hawkes_alpha, scn.hawkes_beta,
+            scn.diurnal_amp, scn.diurnal_period, scn.flash_t, scn.flash_mult,
+            scn.flash_decay, scn.rate_cap_mult * base)
+    rc, rh = rate_trajectory(*args, device="cuda"), rate_trajectory(*args, device="cpu")
+    tick_counts_differ = int((rc.counts.cpu() != rh.counts).sum())
+    rate_rel = float(((rc.rates.cpu() - rh.rates).abs() / rh.rates.clamp(min=1e-30)).max())
+    streams = {d: _stream(d, DRYRUN_TICKS) for d in ("cuda", "cpu")}
+    records_differ = sum(a != b for (_, ra), (_, rb) in zip(streams["cuda"], streams["cpu"])
+                         for a, b in zip(ra, rb))
+    print(f"cuda vs cpu sampling: lanes_differ={differ} of {lanes} "
+          f"tick_counts_differ={tick_counts_differ} rate_max_rel_diff={rate_rel} "
+          f"records_differ={records_differ}", flush=True)
+
+    # one shared record stream (the card's), uncontrolled, on both devices
+    stream = streams["cuda"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        pipe, rep, dstage = _replay_loop(device, stream, compress=True)
+        ing = pipe.sink.ingestor
+        runs[device] = (
+            convert.store_to_numpy(pipe.store), convert.dictionary_to_numpy(dstage.dct),
+            {"records": rep.total_records, "instructions": rep.total_instructions,
+             "raw": rep.raw_instructions, "commits": len(ing.commits),
+             "dropped": sum(c.dropped for c in ing.commits),
+             "refs": sum(c.refs for c in ing.commits), "dict": dstage.stats()},
+            rep.compression_ratios, rep.samples["mu"])
+    (sg, dg, cg, crg, mug), (sc, dc, cc, crc, muc) = runs["cuda"], runs["cpu"]
+    for name in sg:
+        if not np.array_equal(sg[name], sc[name]):
+            raise AssertionError(f"cuda and cpu stores differ in {name}")
+    for name in dg:
+        if not np.array_equal(dg[name], dc[name]):
+            raise AssertionError(f"cuda and cpu dictionaries differ in {name}")
+    if cg != cc or not np.array_equal(crg, crc) or not np.array_equal(mug, muc):
+        raise AssertionError(f"cuda and cpu reports differ: {cg} vs {cc}")
+    if cg["refs"] == 0:
+        raise AssertionError(f"the shared stream made no references: {cg}")
+    raw_pipe, _, _ = _replay_loop("cuda", stream, compress=False)
+    raw = convert.store_to_numpy(raw_pipe.store)
+    for name in raw:
+        if raw[name].tobytes() != sg[name].tobytes():
+            raise AssertionError(f"raw and compressed stores differ in {name}")
+    print("cuda vs cpu workload loop (uncontrolled, --dict-compress, one shared stream) "
+          f"equal, raw == compressed store on the card: {json.dumps(cg)}", flush=True)
+
+
 def main():
     import torch
 
@@ -475,14 +781,25 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    rows = kernel_vs_plain(torch, dev)
-    launches = main_path(torch)
-    tick_breakdown(torch)
-    cuda_vs_cpu(torch)
-    sketch_rows = sketch_vs_plain(torch, dev)
-    query_launches = query_path(torch)
-    query_breakdown(torch)
-    query_cuda_vs_cpu(torch)
+    def phase(number, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {number} ({fn.__name__}): {time.perf_counter() - t:.3f} s", flush=True)
+        return out
+
+    rows = phase(1, kernel_vs_plain, torch, dev)
+    launches = phase(2, main_path, torch)
+    phase(3, tick_breakdown, torch)
+    phase(4, cuda_vs_cpu, torch)
+    sketch_rows = phase(5, sketch_vs_plain, torch, dev)
+    query_launches = phase(6, query_path, torch)
+    phase(7, query_breakdown, torch)
+    phase(8, query_cuda_vs_cpu, torch)
+    traffic_rows = phase(9, traffic_vs_plain, torch, dev)
+    workload_launches = phase(10, workload_path, torch)
+    path_batch = phase(11, workload_breakdown, torch)
+    mine_rows = phase(12, mine_vs_plain, torch, dev, path_batch)
+    phase(13, workload_cuda_vs_cpu, torch)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["load"] == 0.0
@@ -490,6 +807,11 @@ def main():
     # the query path's widest sketch update, with skewed keys as tweets have
     sref = next(r for r in sketch_rows if r["width"] == 512 and r["lanes"] == 8_192
                 and r["keys"] == "zipf")
+    # the workload path's block, in its scenario at full burst
+    tref = next(r for r in traffic_rows if r["scenario"] == "flash_crowd" and r["burst"] == 1.0
+                and r["lanes"] == 2048 and "ms" in r)
+    # the largest batch the workload path mined
+    mref = next(r for r in mine_rows if r["batch"] == "path")
     kernels = [{
         "name": "fused_upsert", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_upsert.cu",
@@ -509,6 +831,24 @@ def main():
         "bound_by": "bytes", "library_ms": sref["library_ms"],
         "library": "three index_add_ calls",
         "shape": {k: sref[k] for k in ("depth", "width", "lanes", "keys")},
+    }, {
+        "name": "traffic_ids", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/traffic_ids.cu",
+        "replaces": "src/repro/kernels/sampler.py:159",
+        "launches": workload_launches["traffic_ids"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in traffic_rows),
+        "ms": tref["ms"], "plain_ms": tref["plain_ms"], "bound_ms": tref["bound_ms"],
+        "bound_by": tref["bound_by"], "library_ms": None,
+        "shape": {k: tref[k] for k in ("scenario", "burst", "lanes")},
+    }, {
+        "name": "pattern_mine", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pattern_mine.cu",
+        "replaces": "src/repro/kernels/pattern_mine.py:174",
+        "launches": workload_launches["pattern_mine"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in mine_rows),
+        "ms": mref["ms"], "plain_ms": mref["plain_ms"], "bound_ms": mref["bound_ms"],
+        "bound_by": mref["bound_by"], "library_ms": None,
+        "shape": {k: mref[k] for k in ("batch", "lanes", "valid")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

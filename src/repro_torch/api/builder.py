@@ -1,7 +1,7 @@
 """`PipelineBuilder` — the fluent facade over the composable API.
 Counterpart of `repro.api.builder` (the core methods, extra record
-stages, and the query path: the sketch stage, the query sink and
-sketch-guided control).
+stages, the query path: the sketch stage, the query sink and
+sketch-guided control, and GraphZip dictionary compression).
 
     pipe = (PipelineBuilder(IngestConfig(cpu_max=0.55), device="cuda")
             .with_source(BurstyTweetSource(seed=0))
@@ -25,14 +25,16 @@ from repro_torch.api.metrics import MetricsHub, PipelineEvent
 from repro_torch.api.pipeline import StreamPipeline
 from repro_torch.api.sinks import GraphStoreSink
 from repro_torch.api.stages import BufferControlStage, FilterStage, TransformStage
+from repro_torch.compress import CompressingTransform, DictionaryStage
 from repro_torch.configs.paper_ingest import IngestConfig
 from repro_torch.core.buffer import BufferController
 from repro_torch.core.transform import MappingSpec
 from repro_torch.device import resolve
 from repro_torch.query.stage import QuerySink, SketchStage
 
-# placeholder in the stage list for a build-time-constructed SketchStage
+# placeholders in the stage list for stages constructed at build time
 _SKETCH_SLOT = object()
+_DICT_SLOT = object()
 
 
 class PipelineBuilder:
@@ -58,6 +60,8 @@ class PipelineBuilder:
         self._sketch_kw = {}
         self._query_sink_opts = None
         self._sketch_guided = False
+        self._dict_stage: Optional[DictionaryStage] = None
+        self._compression_kw = None
 
     # ---- parts ----
     def with_source(self, source) -> "PipelineBuilder":
@@ -120,6 +124,25 @@ class PipelineBuilder:
         self._sketch_guided = flag
         return self
 
+    def with_compression(self, stage: Optional[DictionaryStage] = None,
+                         **kw) -> "PipelineBuilder":
+        """Ingestion-time dictionary compression (GraphZip): mines
+        star/cascade/hot patterns per bucket, rewrites recurring edges
+        into `(pattern_id, bindings)` references against a dictionary on
+        the device, and commits them through `commit_compressed`.  When
+        no stage is passed, one is made at build time on the builder's
+        device from the keyword args (capacity, star_min, hot_min, ttl);
+        read it back via `.dictionary_stage`."""
+        self._dict_stage = stage
+        self._compression_kw = dict(kw)
+        self._stages.append(_DICT_SLOT)
+        return self
+
+    @property
+    def dictionary_stage(self) -> Optional[DictionaryStage]:
+        """The `DictionaryStage` added by `with_compression` (after build())."""
+        return self._dict_stage
+
     def with_consumer(self, consumer) -> "PipelineBuilder":
         self._consumer = consumer
         return self
@@ -177,6 +200,8 @@ class PipelineBuilder:
                     kw.setdefault("device", self.device)
                     self._sketch_stage = SketchStage(**kw)
                 stages.append(self._sketch_stage)
+            elif st is _DICT_SLOT:
+                stages.append(self._dict_stage)  # made by build()
             else:
                 stages.append(st)
         return stages
@@ -205,6 +230,19 @@ class PipelineBuilder:
             qs_opts = {}  # sketch events need a QuerySink
         if qs_opts is not None:
             sink = QuerySink(sink, hub=metrics, **qs_opts)
+        if self._compression_kw is not None:
+            if self._dict_stage is None:
+                kw = dict(self._compression_kw)
+                kw.setdefault("device", dev)
+                self._dict_stage = DictionaryStage(**kw)
+            # the rewrite runs in the transform (after Algorithm 1); the
+            # dictionary learns from SUCCESSFUL commits only, through the
+            # ingestor's commit hooks (`.ingestor` passes through a
+            # QuerySink)
+            transform = CompressingTransform(transform, self._dict_stage)
+            ingestor = getattr(sink, "ingestor", None)
+            if ingestor is not None and hasattr(ingestor, "commit_hooks"):
+                ingestor.commit_hooks.append(self._dict_stage.observe_commit)
         buffer_stage = BufferControlStage(
             controller=self._controller, cfg=self.cfg,
             spill_dir=self._spill_dir, device=dev)

@@ -57,7 +57,9 @@ def _emit_commit(hub: MetricsHub, now: float, out: dict, n_instr: int,
              instructions=n_instr, raw=raw_i, rho=rho, cr=cr,
              dropped=out.get("dropped", 0),
              probe_rounds=out.get("probe_rounds", 0),
-             pressure=out.get("pressure", 0.0))
+             pressure=out.get("pressure", 0.0),
+             refs=out.get("refs", 0),
+             dict_hit_rate=out.get("dict_hit_rate", 0.0))
 
 
 def controlled_tick(buf: BufferControlStage, transform, sink, consumer,
@@ -97,6 +99,10 @@ def controlled_tick(buf: BufferControlStage, transform, sink, consumer,
             if committed:
                 # table pressure -> Algorithm-2 controller (back-pressure)
                 pm.observe_pressure(out.get("pressure", 0.0), out.get("dropped", 0))
+                if "dict_hit_rate" in out:
+                    # compressibility -> the controller's "data content"
+                    # input (GraphZip dictionary compression)
+                    pm.observe_compression(out["dict_hit_rate"], cr)
             pm.observe_mu(mu)
             pm.observe_bucket(rho, density, size)
             pm.observe_mu_outcome(state["last_mu"], state["last_beta_e"], mu)

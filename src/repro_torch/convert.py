@@ -10,6 +10,8 @@ reference's arrays), so the port never imports the reference:
     `GraphSketch` (`hh_keys` as uint64);
   * `snapshot_to_numpy`: a `GraphSnapshot`'s arrays (`node_key` as
     uint64), to compare with the reference's;
+  * `dictionary_from_numpy` / `dictionary_to_numpy`: the same for a
+    GraphZip `PatternDictionary` (`sig` and `psig` as uint64);
   * `controller_from_numpy`: the two RLS states (theta, P, n) of a
     `PerfMon.state()` dict, into a port `BufferController`.
 """
@@ -21,12 +23,14 @@ from typing import Dict, Mapping, Union
 import numpy as np
 import torch
 
+from repro_torch.compress.dictionary import PatternDictionary
 from repro_torch.core.buffer import rls_from_numpy
 from repro_torch.graphstore.store import GraphStore
 from repro_torch.query.sketch import GraphSketch
 from repro_torch.query.snapshot import GraphSnapshot
 
-KEY_FIELDS = ("node_keys", "edge_keys", "edge_src", "edge_dst", "hh_keys", "node_key")
+KEY_FIELDS = ("node_keys", "edge_keys", "edge_src", "edge_dst", "hh_keys", "node_key",
+              "sig", "psig")
 
 
 def _from_numpy(cls, arrays: Mapping[str, np.ndarray], device):
@@ -76,6 +80,18 @@ def sketch_to_numpy(sketch: GraphSketch) -> Dict[str, np.ndarray]:
 def snapshot_to_numpy(snap: GraphSnapshot) -> Dict[str, np.ndarray]:
     """The port snapshot's arrays as numpy, `node_key` as uint64."""
     return _to_numpy(snap)
+
+
+def dictionary_from_numpy(arrays: Mapping[str, np.ndarray],
+                          device: Union[str, torch.device] = "cuda") -> PatternDictionary:
+    """A port pattern dictionary on `device` from numpy arrays keyed by
+    field name."""
+    return _from_numpy(PatternDictionary, arrays, device)
+
+
+def dictionary_to_numpy(d: PatternDictionary) -> Dict[str, np.ndarray]:
+    """The port dictionary's arrays as numpy, `sig` and `psig` as uint64."""
+    return _to_numpy(d)
 
 
 def controller_from_numpy(controller, perfmon_state: Mapping) -> None:

@@ -2,7 +2,8 @@
 Counterpart of `repro.core.buffer`.
 
 The controller senses data rate (velocity, acceleration), data content
-(bucket diversity rho, graph density d) and consumer load mu.
+(bucket diversity rho, graph density d, and the dictionary hit rate
+when GraphZip compression is on) and consumer load mu.
 
 Control law (paper steps 1-7):
   1. PerfMon predicts beta_e (Eq. 2), mu_exp (Eq. 4/5) and the slope s.
@@ -71,6 +72,11 @@ class PerfMon:
     # weight of the sketch's diversity hint when blended into rho (the
     # window mean stays the anchor; the sketch refines it)
     SKETCH_RHO_WEIGHT = 0.5
+    # weight of the dictionary-compression hint when shrinking the
+    # predicted effective buffer: referenced edges commit by direct
+    # scatter (no probing), so a compressible bucket loads the consumer
+    # less than its size suggests
+    COMPRESS_BETA_WEIGHT = 0.5
 
     def __init__(self, cfg: IngestConfig, device: torch.device):
         self.cfg = cfg
@@ -87,6 +93,9 @@ class PerfMon:
         # sketch-guided diversity hint (None until a "sketch" event is
         # observed; then blended into predict()'s rho)
         self.sketch_rho: Optional[float] = None
+        # dictionary-compression hint (None until a compressed commit
+        # reports; the paper's "data content" signal, §III-A)
+        self.dict_hit: Optional[float] = None
 
     # ---- signal ingestion ----
     def observe_rate(self, t: float, records: float):
@@ -106,6 +115,14 @@ class PerfMon:
         ingestion-time sketch, as a diversity hint rho ~ 1 - concentration
         that `predict` blends in."""
         self.sketch_rho = float(np.clip(1.0 - concentration, 0.0, 1.0))
+
+    def observe_compression(self, hit_rate: float, ratio: float):
+        """Compressibility signal from the dictionary-compression path:
+        the fraction of the last commit's unique edges that became
+        pattern references, a hint that scales the predicted effective
+        buffer in `predict`."""
+        del ratio  # reported for observability; the hit rate drives beta_e
+        self.dict_hit = float(np.clip(hit_rate, 0.0, 1.0))
 
     def observe_bucket(self, rho: float, density: float, beta_e: float):
         self.rho_hist.append(float(rho))
@@ -138,6 +155,9 @@ class PerfMon:
             rho = (1.0 - w) * rho + w * self.sketch_rho
         beta_e = float(P.predict_beta_e(self.beta_model, rho, density))
         beta_e = max(beta_e, float(edge_table_size))
+        if self.dict_hit is not None:
+            # referenced edges skip probing: shrink the effective load
+            beta_e *= 1.0 - self.COMPRESS_BETA_WEIGHT * self.dict_hit
         mu_prev = self.mu_hist[-1]
         mu_exp = float(P.predict_mu(self.mu_model, mu_prev, beta_e))
         hist = torch.tensor(list(self.mu_hist), dtype=torch.float32, device=self.device)
@@ -155,6 +175,7 @@ class PerfMon:
             "table_pressure": self.table_pressure,
             "dropped_inserts": self.dropped_inserts,
             "sketch_rho": self.sketch_rho,
+            "dict_hit": self.dict_hit,
         }
 
     def restore_state(self, s: dict) -> None:
@@ -168,6 +189,7 @@ class PerfMon:
         self.table_pressure = float(s["table_pressure"])
         self.dropped_inserts = int(s["dropped_inserts"])
         self.sketch_rho = s.get("sketch_rho")
+        self.dict_hit = s.get("dict_hit")
 
 
 class SpillStore:

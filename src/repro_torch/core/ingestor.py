@@ -4,6 +4,8 @@ Counterpart of `repro.core.ingestor`.
 Bridges the pipeline to the graph store: converts compressed edge
 tables into store commits, respecting a bounded ingestion pool (the
 paper's bolt-connector pool), with commit-failure archiving and retry.
+A GraphZip `compress.CompressedCommit` commits through
+`commit_compressed`, and its commit reports `refs` and `dict_hit_rate`.
 mu = busy time of the ingest engine over the sampling window; a commit's
 busy time ends with a synchronize on the store's device, so it covers
 the device's work.
@@ -32,13 +34,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.edge_table import EdgeTable
-from repro_torch.graphstore.store import GraphStore, ingest_step
+from repro_torch.graphstore.store import GraphStore, commit_compressed, ingest_step
 from repro_torch.telemetry.spans import NULL_REGISTRY
 
-_KEY_FIELDS = ("src", "dst", "node_ids")
+# uint64 key fields of an EdgeTable and of a compress.CompressedCommit
+_KEY_FIELDS = ("src", "dst", "node_ids", "res_psig", "ref_src", "ref_dst")
 # commit stats the host reads after every commit, fetched in one copy
 _HOST_STATS = ("instructions", "new_nodes", "batch_nodes", "probe_rounds",
                "dropped_inserts", "node_load", "edge_load")
+_DICT_STATS = ("dict_refs", "dict_hit_rate")  # compressed commits only
 
 
 @dataclasses.dataclass
@@ -51,29 +55,38 @@ class CommitRecord:
     ok: bool
     probe_rounds: int = 0  # adaptive probe budget the commit ran with
     dropped: int = 0  # inserts lost to table pressure (probing exhausted)
+    refs: int = 0  # dictionary pattern references applied (compressed commits)
 
 
-def _to_host(et: EdgeTable) -> EdgeTable:
-    """Edge table -> numpy leaves (pickle/spill-safe), keys as uint64:
-    the layout of the reference's archive files."""
+def _map_fields(batch, fn):
+    """A copy of an EdgeTable or CompressedCommit with `fn(name, leaf)`
+    applied to every leaf, nested tables included."""
+    def one(name, x):
+        return _map_fields(x, fn) if dataclasses.is_dataclass(x) else fn(name, x)
+
+    return type(batch)(**{f.name: one(f.name, getattr(batch, f.name))
+                          for f in dataclasses.fields(batch)})
+
+
+def _to_host(et):
+    """Batch -> numpy leaves (pickle/spill-safe), keys as uint64: the
+    layout of the reference's archive files."""
     def host(name, x):
         a = x.detach().cpu().numpy()
         return a.view(np.uint64) if name in _KEY_FIELDS else a
 
-    return EdgeTable(**{f.name: host(f.name, getattr(et, f.name))
-                        for f in dataclasses.fields(et)})
+    return _map_fields(et, host)
 
 
-def _to_device(et: EdgeTable, device: torch.device) -> EdgeTable:
+def _to_device(et, device: torch.device):
     """Inverse of `_to_host`: numpy leaves back to tensors on `device`."""
-    def dev(a):
+    def dev(_, a):
         a = np.asarray(a)
         if a.dtype == np.uint64:
             a = a.view(np.int64)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return EdgeTable(**{f.name: dev(getattr(et, f.name))
-                        for f in dataclasses.fields(et)})
+    return _map_fields(et, dev)
 
 
 class GraphIngestor:
@@ -198,12 +211,18 @@ class GraphIngestor:
                 hit = fh(wall) if getattr(fh, "wants_now", False) else fh()
                 if hit:
                     raise ConnectionError("injected commit failure")
+            compressed = hasattr(et, "residual")
+            fetch = _HOST_STATS + (_DICT_STATS if compressed else ())
             with tel.span("commit.upsert"):
-                self.store, s = ingest_step(self.store, et)
+                if compressed:
+                    # pattern-aware path: compress.CompressedCommit
+                    self.store, s = commit_compressed(self.store, et)
+                else:
+                    self.store, s = ingest_step(self.store, et)
             with tel.span("commit.wait"):
                 self._sync()
-                host = dict(zip(_HOST_STATS, torch.stack(
-                    [s[k].to(torch.float64) for k in _HOST_STATS]).tolist()))
+                host = dict(zip(fetch, torch.stack(
+                    [s[k].to(torch.float64) for k in fetch]).tolist()))
             busy = time.perf_counter() - t0
             tel.observe("commit.total", busy)
             self._busy.append((wall, busy))
@@ -218,6 +237,7 @@ class GraphIngestor:
                 ok=True,
                 probe_rounds=int(host["probe_rounds"]),
                 dropped=int(host["dropped_inserts"]),
+                refs=int(host.get("dict_refs", 0)),
             )
             self.commits.append(rec)
             with tel.span("commit.hooks"):
@@ -225,7 +245,7 @@ class GraphIngestor:
                     self.commit_hook(et, s)
                 for hook in self.commit_hooks:
                     hook(et, s)
-            return {
+            out = {
                 "committed": True,
                 "stats": s,
                 "busy_s": busy,
@@ -236,6 +256,11 @@ class GraphIngestor:
                 "probe_rounds": rec.probe_rounds,
                 "pressure": max(host["node_load"], host["edge_load"]),
             }
+            if compressed:
+                # compressibility signals (GraphZip -> controller)
+                out["refs"] = rec.refs
+                out["dict_hit_rate"] = host["dict_hit_rate"]
+            return out
         except ConnectionError:
             # commit failed (network/DBMS) -> archive for replay
             self.consecutive_failures += 1

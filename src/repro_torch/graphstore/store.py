@@ -11,10 +11,13 @@ nodes then edges); degree updates reuse the node slots through the edge
 table's dedup index.  The probe budget is adaptive (x2 past 0.6 load,
 x4 past 0.8) and stays a device scalar, which the kernel reads itself.
 
-Unlike the reference, `ingest_step` updates the store's tensors IN
-PLACE and returns the same `GraphStore`: the tables are the largest
-state on the device, and a functional copy would move them on every
-commit.
+`commit_compressed` commits a GraphZip `CompressedCommit`: the residual
+through `ingest_step`, the dictionary references by direct scatter.
+
+Unlike the reference, `ingest_step` and `commit_compressed` update the
+store's tensors IN PLACE and return the same `GraphStore`: the tables
+are the largest state on the device, and a functional copy would move
+them on every commit.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Tuple, Union
 
 import torch
 
-from repro_torch.core.compression import mix_keys
+from repro_torch.core.compression import flip_sign, mix_keys
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
@@ -194,4 +197,75 @@ def ingest_step(store: GraphStore, et) -> Tuple[GraphStore, dict]:
             dst_deg=dst_deg,
         ),
     }
+    return store, stats
+
+
+def commit_compressed(store: GraphStore, cc) -> Tuple[GraphStore, dict]:
+    """Pattern-aware GRAPHPUSH for a `repro_torch.compress.CompressedCommit`.
+
+    The residual edge table takes the normal two-sweep `ingest_step`;
+    dictionary references then land by direct scatter on their cached
+    store slots, with no probing.  Referenced edges are already present
+    (their slots were cached at an earlier successful commit, and slots
+    are never freed), so the result equals committing the full raw
+    batch: counts accumulate on the same slots, no degree changes, and
+    each unique batch node still gets exactly one `node_count` increment
+    (reference-only endpoints are counted here, once each, against the
+    residual's node set).
+
+    Updates `store` in place.  The stats keep the raw path's keys with
+    full-batch meaning, plus `dict_refs` and `dict_hit_rate`; the
+    `CommitDelta` carries the reference edges as placed, not new."""
+    store, s = ingest_step(store, cc.residual)
+    ncap = store.node_keys.shape[0]
+
+    # ---- reference edges: count accumulation on cached slots ----
+    rv = cc.ref_valid & (cc.ref_eslot >= 0)
+    _masked_add(store.edge_count, cc.ref_eslot, rv, cc.ref_count)
+    n_refs = rv.sum(dtype=torch.int32)
+
+    # ---- reference-only endpoints: one node_count +1 per unique batch
+    # node, as on the raw path.  The residual's node ids are sorted
+    # unique (unsigned order, sentinel tail): one binary search each
+    res_nodes = cc.residual.node_ids
+    ref_keys = torch.cat([cc.ref_src, cc.ref_dst])
+    ref_slots = torch.cat([cc.ref_sslot, cc.ref_dslot])
+    pos = torch.searchsorted(flip_sign(res_nodes), flip_sign(ref_keys))
+    in_residual = res_nodes[pos.clamp(0, res_nodes.shape[0] - 1)] == ref_keys
+    cand = torch.cat([rv, rv]) & (ref_slots >= 0) & ~in_residual
+    m = ref_keys.shape[0]
+    lane = torch.arange(m, dtype=torch.int32, device=ref_keys.device)
+    # first occurrence per slot: an endpoint shared by several refs (or
+    # by both sides of one) still counts once.  Dropped lanes go to a
+    # trash slot past the end (the reference's out-of-range index)
+    first = torch.full((ncap + 1,), m, dtype=torch.int32, device=ref_keys.device)
+    first.scatter_reduce_(0, torch.where(cand, ref_slots, ncap).to(torch.int64), lane, "amin")
+    nmask = cand & (first[ref_slots.clamp(0, ncap - 1).to(torch.int64)] == lane)
+    _masked_add(store.node_count, ref_slots, nmask, torch.ones_like(ref_slots))
+    n_ref_nodes = nmask.sum(dtype=torch.int32)
+
+    d = s["delta"]
+    zb = torch.zeros_like(rv)
+    batch_edges = s["batch_edges"] + n_refs
+    stats = dict(s)
+    stats.update(
+        batch_nodes=s["batch_nodes"] + n_ref_nodes,
+        batch_edges=batch_edges,
+        instructions=s["new_nodes"] + batch_edges,
+        dict_refs=n_refs,
+        dict_hit_rate=n_refs.to(torch.float32) / batch_edges.to(torch.float32).clamp(min=1.0),
+        delta=CommitDelta(
+            node_ids=torch.cat([d.node_ids, ref_keys]),
+            node_placed=torch.cat([d.node_placed, nmask]),
+            node_new=torch.cat([d.node_new, torch.zeros_like(nmask)]),
+            src=torch.cat([d.src, cc.ref_src]),
+            dst=torch.cat([d.dst, cc.ref_dst]),
+            etype=torch.cat([d.etype, cc.ref_etype]),
+            count=torch.cat([d.count, cc.ref_count]),
+            edge_placed=torch.cat([d.edge_placed, rv]),
+            edge_new=torch.cat([d.edge_new, zb]),
+            src_deg=torch.cat([d.src_deg, zb]),
+            dst_deg=torch.cat([d.dst_deg, zb]),
+        ),
+    )
     return store, stats

@@ -1,0 +1,169 @@
+"""Per-batch frequent-substructure mining for GraphZip compression.
+
+Counterpart of `repro.kernels.pattern_mine`.  Mining is recast as three
+sorted-vector problems over the dedup'd batch:
+
+  star bursts    fan_out[e] = |{f : (src, etype) equal}|  (hub fan-out)
+                 fan_in[e]  = |{f : (dst, etype) equal}|  (hub fan-in)
+  cascade chains dst[e] appears as a source elsewhere in the batch
+  hot edges      within-batch multiplicity >= hot_min
+
+Each admitted edge carries a pattern signature (the hub or relay id
+mixed with a pattern tag).  Keys are int64 tensors holding uint64 bits;
+the sorts and searches run on sign-flipped keys, whose signed order is
+the unsigned order, and invalid lanes hold the all-ones sentinel, which
+sorts last.
+
+`pattern_mine` is the wrapper: on CUDA tensors it launches the
+hand-written kernel `csrc/pattern_mine.cu`, which sorts the three
+vectors in its own body; on CPU tensors it runs the plain version
+`pattern_mine_ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.compression import SENTINEL, flip_sign, mix_keys
+from repro_torch.kernels import build
+
+# pattern-signature tags (the "pattern class" half of a dictionary key)
+TAG_STAR_OUT = 0xA1
+TAG_STAR_IN = 0xA2
+TAG_CHAIN = 0xA3
+TAG_HOT = 0xA4
+
+# admit-flag bits returned per edge
+FLAG_STAR_OUT = 1
+FLAG_STAR_IN = 2
+FLAG_CHAIN = 4
+FLAG_HOT = 8
+
+MAX_LANES = 1 << 16  # the largest batch the reference's kernel takes
+SMEM_LANES = 1 << 13  # the kernel sorts in shared memory up to here (csrc kSmemLanes)
+
+Mined = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _bisect(sorted_keys: torch.Tensor, q: torch.Tensor, right: bool) -> torch.Tensor:
+    """The reference's vectorised binary search, step for step: n's
+    bit length rounds of (lo, hi) halving over flipped (signed-order)
+    keys, the probe index clipped to [0, n).  A query above every key
+    ends at n + 1, as in the reference."""
+    n = sorted_keys.shape[0]
+    lo = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    hi = torch.full(q.shape, n, dtype=torch.int32, device=q.device)
+    for _ in range(max(n.bit_length(), 1)):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        v = sorted_keys[mid.clamp(0, n - 1).to(torch.int64)]
+        go = (v <= q) if right else (v < q)
+        lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
+    return lo
+
+
+def _tag(ids: torch.Tensor, etype: torch.Tensor, tag: int) -> torch.Tensor:
+    """Pattern signature: hub/relay id x etype x pattern-class tag."""
+    return mix_keys(ids, etype.to(torch.int64), torch.full_like(etype, tag))
+
+
+def pattern_mine_ref(src: torch.Tensor, dst: torch.Tensor, etype: torch.Tensor,
+                     count: torch.Tensor, valid: torch.Tensor, star_min: int,
+                     hot_min: int) -> Mined:
+    """Plain PyTorch version of the reference's `mine_body`, with
+    `torch.sort` on flipped keys for the sort.  Returns (fan_out,
+    fan_in, flags, psig): int32 fan counts (0 on invalid lanes), the
+    int32 FLAG_* mask, and the int64 pattern signature (0 where flags
+    is 0)."""
+    sentinel = torch.full_like(src, SENTINEL)
+    gs = _tag(src, etype, TAG_STAR_OUT)  # (src, etype) group key
+    gd = _tag(dst, etype, TAG_STAR_IN)  # (dst, etype) group key
+    fgs, fgd, fdst = flip_sign(gs), flip_sign(gd), flip_sign(dst)
+    sorted_gs = torch.sort(flip_sign(torch.where(valid, gs, sentinel))).values
+    sorted_gd = torch.sort(flip_sign(torch.where(valid, gd, sentinel))).values
+    sorted_src = torch.sort(flip_sign(torch.where(valid, src, sentinel))).values
+
+    zero = torch.zeros_like(count)
+    fan_out = torch.where(valid, _bisect(sorted_gs, fgs, True) - _bisect(sorted_gs, fgs, False),
+                          zero)
+    fan_in = torch.where(valid, _bisect(sorted_gd, fgd, True) - _bisect(sorted_gd, fgd, False),
+                         zero)
+
+    # cascade chain: this edge's head is some other edge's tail
+    pos = _bisect(sorted_src, fdst, False)
+    member = sorted_src[pos.clamp(0, src.shape[0] - 1).to(torch.int64)] == fdst
+    chain = valid & member & (dst != src)
+
+    staro = valid & (fan_out >= star_min)
+    stari = valid & (fan_in >= star_min)
+    hot = valid & (count >= hot_min)
+    flags = (staro.to(torch.int32) * FLAG_STAR_OUT + stari.to(torch.int32) * FLAG_STAR_IN
+             + chain.to(torch.int32) * FLAG_CHAIN + hot.to(torch.int32) * FLAG_HOT)
+
+    # strongest pattern wins the signature: hub fan-out > fan-in >
+    # chain relay > hot edge (the edge's own key)
+    psig = _tag(src, etype, TAG_HOT)
+    psig = torch.where(chain, _tag(dst, etype, TAG_CHAIN), psig)
+    psig = torch.where(stari, gd, psig)
+    psig = torch.where(staro, gs, psig)
+    return fan_out, fan_in, flags, torch.where(flags != 0, psig, torch.zeros_like(psig))
+
+
+def _check(src, dst, etype, count, valid):
+    n = src.shape[0] if src.dim() == 1 else -1
+    if n < 1 or n & (n - 1) or n > MAX_LANES:
+        raise ValueError(f"batch size must be a power of two in [1, {MAX_LANES}], "
+                         f"got {tuple(src.shape)}")
+    tensors = (src, dst, etype, count, valid)
+    if any(t.shape != (n,) for t in tensors):
+        raise ValueError("src, dst, etype, count and valid must be (n,)")
+    if (src.dtype, dst.dtype, etype.dtype, count.dtype, valid.dtype) != \
+            (torch.int64, torch.int64, torch.int32, torch.int32, torch.bool):
+        raise TypeError("src/dst must be int64 (uint64 bits), etype/count int32, valid bool")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("every operand of pattern_mine must be contiguous")
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"all operands must be on one device, got {devices}")
+
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+
+
+def _launch(src, dst, etype, count, valid, star_min, hot_min) -> Mined:
+    fn = build.library("pattern_mine").pattern_mine_launch
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    n, dev = src.shape[0], src.device
+    counts = torch.empty((3, n), dtype=torch.int32, device=dev)
+    psig = torch.empty(n, dtype=torch.int64, device=dev)
+    # the three sort vectors live in shared memory up to SMEM_LANES
+    # edges, and in this scratch beyond
+    scratch = torch.empty(3 * n, dtype=torch.int64, device=dev) if n > SMEM_LANES else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(src.data_ptr(), dst.data_ptr(), etype.data_ptr(), count.data_ptr(),
+             valid.data_ptr(), n, int(star_min), int(hot_min), counts[0].data_ptr(),
+             counts[1].data_ptr(), counts[2].data_ptr(), psig.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pattern_mine launch failed: cudaError {err}")
+    build.launches["pattern_mine"] += 1
+    return counts[0], counts[1], counts[2], psig
+
+
+def pattern_mine(src: torch.Tensor, dst: torch.Tensor, etype: torch.Tensor,
+                 count: torch.Tensor, valid: torch.Tensor, star_min: int,
+                 hot_min: int) -> Mined:
+    """Mine one dedup'd batch: (fan_out, fan_in, flags, psig).
+
+    src/dst (n,) int64 key bits; etype/count (n,) int32; valid (n,)
+    bool; n a power of two up to 65,536; star_min/hot_min int
+    thresholds.  CUDA tensors launch the kernel, CPU tensors run
+    `pattern_mine_ref`."""
+    _check(src, dst, etype, count, valid)
+    if src.device.type == "cuda":
+        return _launch(src, dst, etype, count, valid, star_min, hot_min)
+    if src.device.type == "cpu":
+        return pattern_mine_ref(src, dst, etype, count, valid, star_min, hot_min)
+    raise ValueError(f"pattern_mine runs on cuda or cpu, not {src.device}")

@@ -1,0 +1,314 @@
+"""Closed-loop controller evaluation harness.
+Counterpart of `repro.workloads.harness`.
+
+`run_scenario` drives a pipeline through a registry scenario and
+condenses the run into a `WorkloadReport`: sustained throughput,
+drop/spill/drain counts, the Algorithm-2 buffer-mode transition
+timeline, the table-pressure throttles and, with `dict_compress`, the
+GraphZip dictionary's references and hit rate.  The CLI
+(`python -m repro_torch.launch.workload`) calls it.
+
+The port runs one shard, optionally sketch-guided and with dictionary
+compression.  The reference's other options raise `NotImplementedError`
+until the slice that brings them (ROADMAP §1): sharding (Slice A item
+2), and telemetry, monitoring, lineage, traces, faults, retry and
+checkpoints (Slice E).  The report keeps every field of the
+reference's, at its inert default where the port has no such path yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.api import PipelineBuilder
+from repro_torch.configs.paper_ingest import IngestConfig
+from repro_torch.device import resolve
+from repro_torch.workloads.scenarios import Scenario, get_scenario
+from repro_torch.workloads.source import ScenarioSource
+
+
+@dataclasses.dataclass
+class WorkloadReport:
+    """Structured result of one scenario run (JSON-safe via to_dict)."""
+
+    scenario: str
+    seed: int
+    ticks: int
+    shards: int
+    sketch_guided: bool
+    wall_s: float
+    stream_s: float
+    total_records: int
+    records_per_stream_s: float  # sustained throughput in stream time
+    records_per_wall_s: float    # what this host actually sustained
+    total_instructions: int
+    raw_instructions: int
+    mean_compression: float
+    spill_events: int
+    drain_events: int
+    dropped_inserts: int         # store-table inserts lost under pressure
+    pressure_throttles: int      # one-shot table-pressure throttles fired
+    action_counts: Dict[str, int]
+    transitions: List[Dict]      # [{t, shard, from, to}] buffer-mode timeline
+    mu_mean: float
+    mu_p95: float
+    mu_max: float
+    delay_max_s: float
+    store_nodes: int
+    store_edges: int
+    # dictionary-compression path (zeros when off)
+    dict_compress: bool = False
+    pattern_refs: int = 0        # total (pattern_id, bindings) references
+    dict_hit_rate: float = 0.0   # dictionary hit rate over the whole run
+    commit_ms_mean: float = 0.0  # mean successful-commit latency (ms)
+    # resilience path (not in the port yet: inert defaults)
+    commit_failures: int = 0
+    retries_replayed: int = 0
+    archived_total: int = 0
+    archive_remaining: int = 0
+    pool_overflows: int = 0
+    degraded_events: int = 0
+    checkpoints_saved: int = 0
+    resumed_from_tick: int = -1
+    store_digest: str = ""
+    snapshot_digest: str = ""
+    # telemetry (not in the port yet)
+    telemetry_enabled: bool = False
+    stage_latency_ms: Dict[str, Dict[str, float]] = \
+        dataclasses.field(default_factory=dict)
+    audit_decisions: int = 0
+    # health monitoring (not in the port yet)
+    monitor_enabled: bool = False
+    health_events: List[Dict] = dataclasses.field(default_factory=list)
+    burst_onset_tick: int = -1
+    slo_summary: Dict = dataclasses.field(default_factory=dict)
+    slo_breaches: int = 0
+    slo_alerts: int = 0
+    controller_score: float = 1.0
+    decision_quality: Dict = dataclasses.field(default_factory=dict)
+    # lineage / freshness (not in the port yet)
+    lineage_enabled: bool = False
+    ingest_lag_ms_p50: float = 0.0
+    ingest_lag_ms_p99: float = 0.0
+    queryable_lag_ms_p99: float = 0.0
+    path_mix: Dict[str, int] = dataclasses.field(default_factory=dict)
+    watermark_final: Dict = dataclasses.field(default_factory=dict)
+    records_in: int = 0
+    records_committed: int = 0
+    records_dropped: int = 0
+    records_in_flight: int = 0
+    conservation_warning: str = ""
+
+    @property
+    def n_transitions(self) -> int:
+        return len(self.transitions)
+
+    def to_dict(self) -> Dict:
+        d = dataclasses.asdict(self)
+        d["n_transitions"] = self.n_transitions
+        return json.loads(json.dumps(d, default=float))  # force JSON-safe
+
+    def summary(self) -> str:
+        acts = " ".join(f"{k}={v}" for k, v in sorted(self.action_counts.items()))
+        return (
+            f"scenario={self.scenario} ticks={self.ticks} shards={self.shards}\n"
+            f"records={self.total_records} "
+            f"({self.records_per_stream_s:.1f}/s stream, "
+            f"{self.records_per_wall_s:.1f}/s wall) "
+            f"instructions={self.total_instructions} "
+            f"(raw {self.raw_instructions}, cr {self.mean_compression:.3f})\n"
+            f"mu: mean={self.mu_mean:.3f} p95={self.mu_p95:.3f} "
+            f"max={self.mu_max:.3f} delay_max={self.delay_max_s:.1f}s\n"
+            f"control: {acts} | transitions={self.n_transitions} "
+            f"spills={self.spill_events} drains={self.drain_events} "
+            f"pressure_throttles={self.pressure_throttles} "
+            f"dropped_inserts={self.dropped_inserts}\n"
+            f"store: {self.store_nodes} nodes, {self.store_edges} edges"
+            + (f"\ndict: refs={self.pattern_refs} "
+               f"hit_rate={self.dict_hit_rate:.3f} "
+               f"commit_ms={self.commit_ms_mean:.2f}"
+               if self.dict_compress else "")
+        )
+
+
+def _timeline(samples: Dict, actions: List[str], shard: int) -> List[Dict]:
+    """Buffer-mode transitions from one pipeline trace."""
+    ts = samples.get("t", np.asarray([]))
+    out = []
+    for i in range(1, len(actions)):
+        if actions[i] != actions[i - 1]:
+            out.append({"t": float(ts[i]) if i < len(ts) else float(i),
+                        "shard": shard,
+                        "from": actions[i - 1], "to": actions[i]})
+    return out
+
+
+def _unsupported(shards, telemetry, monitor, lineage, trace, trace_jsonl,
+                 lineage_jsonl, fault_plan, retry, checkpoint_dir, resume) -> None:
+    """Raise for the reference's options the port does not have yet."""
+    if shards > 1:
+        raise NotImplementedError(
+            "shards > 1 needs ShardedPipeline, which ROADMAP §1 Slice A "
+            "item 2 brings to the port")
+    slice_e = {"telemetry": telemetry, "monitor": monitor, "lineage": lineage,
+               "trace": trace, "trace_jsonl": trace_jsonl,
+               "lineage_jsonl": lineage_jsonl, "fault_plan": fault_plan,
+               "retry": retry,
+               "checkpoint_dir": checkpoint_dir, "resume": resume}
+    asked = [k for k, v in slice_e.items() if v not in (None, False)]
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: the ops layer (telemetry, monitor, lineage, "
+            f"resilience) comes to the port with ROADMAP §1 Slice E")
+
+
+class _Tally:
+    """Commit-event counts the report reads: dropped inserts,
+    dictionary references, and the hit rate summed over commits."""
+
+    def __init__(self):
+        self.dropped = self.refs = self.commits = 0
+        self.hit_sum = 0.0
+
+    def __call__(self, ev) -> None:
+        if ev.kind == "commit":
+            self.dropped += int(ev.payload.get("dropped", 0))
+            self.refs += int(ev.payload.get("refs", 0))
+            self.hit_sum += float(ev.payload.get("dict_hit_rate", 0.0))
+            self.commits += 1
+
+
+def scenario_builder(
+    scn: Scenario,
+    *,
+    seed: int = 0,
+    speed: float = 0.5,
+    rate_scale: float = 1.0,
+    sketch_guided: bool = False,
+    dict_compress: bool = False,
+    dict_capacity: int = 4096,
+    node_cap: Optional[int] = None,
+    edge_cap: Optional[int] = None,
+    device: Union[str, torch.device, None] = None,
+):
+    """The pipeline `run_scenario` drives, not yet built: returns
+    (builder, source, tally), the tally counting the commit events the
+    report reads.  A caller may add to the builder (metrics, event
+    handlers) before `build()`."""
+    dev = resolve(device)
+    cfg = IngestConfig(
+        mean_rate=scn.base_rate,
+        store_nodes=node_cap or IngestConfig.store_nodes,
+        store_edges=edge_cap or IngestConfig.store_edges,
+    )
+    src = ScenarioSource(scn, seed=seed, rate_scale=rate_scale, device=dev)
+    tally = _Tally()
+    b = (PipelineBuilder(cfg, device=dev)
+         .with_source(src)
+         .simulated_consumer(speed=speed)
+         .on_event(tally))
+    if sketch_guided:
+        b = b.sketch_guided()
+    if dict_compress:
+        b = b.with_compression(capacity=dict_capacity)
+    return b, src, tally
+
+
+def run_scenario(
+    scenario: Union[Scenario, str],
+    *,
+    ticks: Optional[int] = None,
+    seed: int = 0,
+    shards: int = 1,
+    speed: float = 0.5,
+    rate_scale: float = 1.0,
+    sketch_guided: bool = False,
+    dict_compress: bool = False,
+    dict_capacity: int = 4096,
+    node_cap: Optional[int] = None,
+    edge_cap: Optional[int] = None,
+    on_event=None,
+    telemetry=None,
+    monitor=None,
+    lineage=None,
+    trace: Optional[str] = None,
+    trace_jsonl: Optional[str] = None,
+    lineage_jsonl: Optional[str] = None,
+    fault_plan=None,
+    retry=None,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    device: Union[str, torch.device, None] = None,
+) -> WorkloadReport:
+    """Drive a pipeline through `scenario` on `device` (default the
+    card) and report (module docstring).
+
+    `speed` scales the simulated consumer (0.5 = the paper's half-
+    capacity store engine, the setting that makes bursts bite);
+    `node_cap`/`edge_cap` shrink the store; `dict_compress` turns on the
+    GraphZip dictionary-compression path (`with_compression`).  The
+    options of later slices raise `NotImplementedError` (module
+    docstring)."""
+    _unsupported(shards, telemetry, monitor, lineage, trace, trace_jsonl,
+                 lineage_jsonl, fault_plan, retry, checkpoint_dir, resume)
+    scn = get_scenario(scenario) if isinstance(scenario, str) else scenario
+    ticks = int(ticks if ticks is not None else scn.ticks)
+    b, src, tally = scenario_builder(
+        scn, seed=seed, speed=speed, rate_scale=rate_scale,
+        sketch_guided=sketch_guided, dict_compress=dict_compress,
+        dict_capacity=dict_capacity, node_cap=node_cap, edge_cap=edge_cap,
+        device=device)
+    if on_event is not None:
+        b = b.on_event(on_event)
+    pipe = b.build()
+    rep = pipe.run(max_ticks=ticks)
+
+    mu = rep.samples["mu"] if len(rep.samples["mu"]) else np.asarray([0.0])
+    delay = rep.samples["delay_s"] if len(rep.samples["delay_s"]) \
+        else np.asarray([0.0])
+    counts: Dict[str, int] = {}
+    for a in rep.actions:
+        counts[a] = counts.get(a, 0) + 1
+    ingestor = pipe.sink.ingestor
+    commit_ms = [1e3 * c.busy_s for c in ingestor.commits if c.ok]
+    return WorkloadReport(
+        scenario=scn.name,
+        seed=seed,
+        ticks=ticks,
+        shards=shards,
+        sketch_guided=sketch_guided,
+        wall_s=float(rep.wall_s),
+        stream_s=float(ticks * src.dt),
+        total_records=int(rep.total_records),
+        records_per_stream_s=rep.total_records / max(ticks * src.dt, 1e-9),
+        records_per_wall_s=rep.total_records / max(rep.wall_s, 1e-9),
+        total_instructions=int(rep.total_instructions),
+        raw_instructions=int(rep.raw_instructions),
+        mean_compression=float(rep.mean_compression),
+        spill_events=int(rep.spill_events),
+        drain_events=int(rep.drain_events),
+        dropped_inserts=tally.dropped,
+        pressure_throttles=pipe.buffer_stage.controller.pressure_throttles,
+        action_counts=counts,
+        transitions=_timeline(rep.samples, rep.actions, 0),
+        mu_mean=float(mu.mean()),
+        mu_p95=float(np.percentile(mu, 95)),
+        mu_max=float(mu.max()),
+        delay_max_s=float(delay.max()),
+        store_nodes=int(pipe.store.n_nodes),
+        store_edges=int(pipe.store.n_edges),
+        dict_compress=dict_compress,
+        pattern_refs=tally.refs,
+        dict_hit_rate=tally.hit_sum / max(tally.commits, 1),
+        commit_ms_mean=float(np.mean(commit_ms)) if commit_ms else 0.0,
+        commit_failures=sum(1 for c in ingestor.commits if not c.ok),
+        retries_replayed=ingestor.replayed,
+        archived_total=ingestor.archived_total,
+        archive_remaining=ingestor.archive_depth,
+        pool_overflows=ingestor.pool_overflows,
+        degraded_events=int(pipe.metrics.counters["degraded"]),
+    )

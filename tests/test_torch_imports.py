@@ -43,7 +43,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                          env=_env(), cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 25 and bad == "[]", out.stdout
+    assert int(n) >= 35 and bad == "[]", out.stdout
 
 
 def test_no_port_source_imports_jax_or_the_reference():
@@ -74,13 +74,26 @@ def test_query_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch):
     assert int(out.snapshot.n_edges) > 0 and (out.est_w >= out.exact_w).all()
 
 
+def test_workload_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch):
+    from repro_torch.launch import workload
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        workload.main(["--dryrun", "--ticks", "2"])
+    code, rep = workload.run(["--dryrun", "--ticks", "8", "--device", "cpu", "--dict-compress"])
+    assert code == 0 and rep.total_records > 0 and rep.dict_compress
+
+
 @pytest.mark.parametrize("entry", ["builder", "sink", "transform", "controller",
-                                   "sketch_stage", "sketch"])
+                                   "sketch_stage", "sketch", "scenario_source",
+                                   "dictionary_stage", "run_scenario"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     from repro_torch.api import GraphStoreSink, PipelineBuilder, TransformStage
+    from repro_torch.compress import DictionaryStage
     from repro_torch.configs.paper_ingest import IngestConfig
     from repro_torch.core.buffer import BufferController
     from repro_torch.query import SketchStage, init_sketch
+    from repro_torch.workloads import ScenarioSource, run_scenario
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     make = {
@@ -90,6 +103,9 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "controller": lambda: BufferController(IngestConfig()),
         "sketch_stage": lambda: SketchStage(),
         "sketch": lambda: init_sketch(),
+        "scenario_source": lambda: ScenarioSource("flash_crowd"),
+        "dictionary_stage": lambda: DictionaryStage(),
+        "run_scenario": lambda: run_scenario("flash_crowd", ticks=2),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()

@@ -1,0 +1,215 @@
+"""Port parity: the workload harness (`launch.workload`'s path), raw and
+with GraphZip dictionary compression.
+
+The reference runs `repro.workloads.run_scenario("flash_crowd",
+ticks=60, seed=0, node_cap=2**12, edge_cap=2**14)` (the CLI's
+`--dryrun` size, x64) once without and once with `dict_compress`,
+recording the records its `ScenarioSource` yields and the controller's
+per-tick (action, beta).
+
+  * Record streams: the port's `ScenarioSource` on the CPU yields the
+    same ticks with the same record counts.  Records are built from the
+    sampled ids, whose Zipf ranks may differ from the reference's on a
+    few lanes (ROADMAP F1: on this stream 12 of the 17,308 records the
+    reference generates).  A record carries three sampled ranks, and a
+    duplicate repeats an earlier record's, so the bound is twice the
+    per-lane bound of tests/test_torch_sampler.py: 2 in 10^3 records.
+  * The port's `run_scenario` then replays the reference's records and
+    decisions (as tests/test_torch_pipeline.py does: the float32 RLS
+    sums in another order, F2), and must give the same report (every
+    field but the wall-clock ones), the same store, and with
+    compression the same dictionary, bit for bit.
+  * `launch.workload --dryrun --device cpu --dict-compress` under the
+    same replay prints the reference's report, wall-clock numbers aside.
+  * `state()`/`restore_state()` resumes a stream mid-chunk exactly.
+"""
+import copy
+import dataclasses
+import re
+
+import jax
+import numpy as np
+import pytest
+
+from repro.api import PipelineBuilder as RefBuilder
+from repro.workloads import harness as ref_harness
+from repro.workloads.source import ScenarioSource as RefScenarioSource
+from repro_torch import convert
+from repro_torch.api import PipelineBuilder
+from repro_torch.core.buffer import BufferController
+from repro_torch.ingest.sources import StreamTick
+from repro_torch.launch import workload
+from repro_torch.workloads import ScenarioSource
+from repro_torch.workloads import harness
+
+SCENARIO, TICKS, SEED = "flash_crowd", 60, 0
+CAPS = dict(node_cap=1 << 12, edge_cap=1 << 14)
+RECORD_MISMATCH_MAX = 2e-3  # F1: twice the per-lane bound
+WALL_FIELDS = ("wall_s", "records_per_wall_s", "commit_ms_mean")
+
+
+class ReplayController(BufferController):
+    """Takes the reference's decisions, tick by tick, in place of its own."""
+
+    def __init__(self, cfg, decisions, **kw):
+        super().__init__(cfg, **kw)
+        self._decisions = iter(decisions)
+
+    def decide(self, edge_table_size, density, now=None):
+        dec = super().decide(edge_table_size, density, now)
+        action, beta = next(self._decisions)
+        self.beta = beta
+        return dataclasses.replace(dec, action=action, beta=beta)
+
+
+class ReplaySource:
+    """Yields recorded ticks (copies, so a run cannot alter them)."""
+
+    def __init__(self, ticks, dt=1.0):
+        self._ticks, self.dt = ticks, dt
+
+    def ticks(self):
+        for t, records in self._ticks:
+            yield StreamTick(t, copy.deepcopy(records))
+
+
+def _reference_run(tmp, dict_compress):
+    rec = {"ticks": [], "decisions": []}
+
+    class RecordingSource(RefScenarioSource):
+        def ticks(self):
+            for tick in super().ticks():
+                rec["ticks"].append((tick.t, copy.deepcopy(tick.records)))
+                yield tick
+
+    class RecordingBuilder(RefBuilder):
+        def build(self):
+            pipe = super().build()
+            pipe.controller.on_decision = lambda d: rec["decisions"].append((d.action, d.beta))
+            rec["pipe"], rec["dict"] = pipe, self.dictionary_stage
+            return pipe
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_harness, "ScenarioSource", RecordingSource)
+        mp.setattr(ref_harness, "PipelineBuilder", RecordingBuilder)
+        with jax.enable_x64(True):
+            rec["report"] = ref_harness.run_scenario(
+                SCENARIO, ticks=TICKS, seed=SEED, dict_compress=dict_compress,
+                spill_dir=str(tmp / f"ref_{dict_compress}"), **CAPS)
+            store = rec["pipe"].store
+            rec["store"] = {f.name: np.asarray(getattr(store, f.name))
+                            for f in dataclasses.fields(store)}
+            if dict_compress:
+                rec["dict_stats"] = rec["dict"].stats()
+                rec["dict_arrays"] = {f.name: np.asarray(getattr(rec["dict"].dct, f.name))
+                                      for f in dataclasses.fields(rec["dict"].dct)}
+    return rec
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("workloads")
+    return {dc: _reference_run(tmp, dc) for dc in (False, True)}
+
+
+def _replaying(mp, tmp, ref):
+    """Patch the port's harness to replay `ref`'s records and decisions;
+    returns the dict the built pipeline and dictionary stage land in."""
+    got = {}
+
+    class ReplayBuilder(PipelineBuilder):
+        def build(self):
+            self.with_controller(ReplayController(
+                self.cfg, ref["decisions"], spill_dir=str(tmp / "port_spill"),
+                device=self.device))
+            got["pipe"] = super().build()
+            got["dict"] = self.dictionary_stage
+            return got["pipe"]
+
+    mp.setattr(harness, "ScenarioSource",
+               lambda scn, seed, rate_scale, device: ReplaySource(ref["ticks"]))
+    mp.setattr(harness, "PipelineBuilder", ReplayBuilder)
+    return got
+
+
+def _records(ticks):
+    return [r for _, recs in ticks for r in recs]
+
+
+def test_scenario_source_stream_matches_reference(reference):
+    want = reference[False]["ticks"]
+    src = ScenarioSource(SCENARIO, seed=SEED, device="cpu")
+    got = [(t.t, t.records) for t, _ in zip(src.ticks(), range(len(want)))]
+    assert [(t, len(r)) for t, r in got] == [(t, len(r)) for t, r in want]
+    g, w = _records(got), _records(want)
+    differ = sum(a != b for a, b in zip(g, w))
+    assert differ <= RECORD_MISMATCH_MAX * len(w), (differ, len(w))
+    # only the sampled ids can differ: ids, texts and timestamps agree
+    assert [(a["id"], a["text"], a["ts"]) for a in g] == [(b["id"], b["text"], b["ts"]) for b in w]
+
+
+def test_scenario_source_state_round_trip():
+    src = ScenarioSource("celebrity_cascade", seed=3, device="cpu")
+    it = src.ticks()
+    for _ in range(70):  # past the first 64-tick chunk: a cursor mid-chunk
+        next(it)
+    state = copy.deepcopy(src.state())
+    assert state["pending"]
+    tail = [next(it) for _ in range(10)]
+    again = ScenarioSource("celebrity_cascade", seed=3, device="cpu")
+    again.restore_state(state)
+    it2 = again.ticks()
+    for want in tail:
+        got = next(it2)
+        assert (got.t, got.records) == (want.t, want.records)
+
+
+@pytest.mark.parametrize("dict_compress", [False, True])
+def test_run_scenario_under_replay_matches_reference(reference, tmp_path, monkeypatch,
+                                                     dict_compress):
+    ref = reference[dict_compress]
+    got = _replaying(monkeypatch, tmp_path, ref)
+    rep = harness.run_scenario(SCENARIO, ticks=TICKS, seed=SEED, dict_compress=dict_compress,
+                               device="cpu", **CAPS)
+    g, w = rep.to_dict(), ref["report"].to_dict()
+    for k in WALL_FIELDS:
+        g.pop(k), w.pop(k)
+    assert g == w
+    assert rep.total_records > 0 and rep.transitions
+    store = convert.store_to_numpy(got["pipe"].store)
+    for name, arr in ref["store"].items():
+        np.testing.assert_array_equal(store[name], arr.astype(store[name].dtype), err_msg=name)
+    if dict_compress:
+        assert rep.pattern_refs > 0
+        assert got["dict"].stats() == ref["dict_stats"]
+        arrays = convert.dictionary_to_numpy(got["dict"].dct)
+        for name, arr in ref["dict_arrays"].items():
+            np.testing.assert_array_equal(arrays[name], arr.astype(arrays[name].dtype),
+                                          err_msg=name)
+
+
+def _mask_wall(text):
+    text = re.sub(r"[\d.]+/s wall", "<wall>", text)
+    return re.sub(r"commit_ms=[\d.]+", "commit_ms=<wall>", text)
+
+
+def test_dryrun_cli_prints_the_reference_report(reference, tmp_path, monkeypatch, capsys):
+    ref = reference[True]
+    _replaying(monkeypatch, tmp_path, ref)
+    code, rep = workload.run(["--dryrun", "--device", "cpu", "--dict-compress"])
+    assert code == 0
+    r = ref["report"]
+    lines = [r.summary(), f"buffer-mode timeline (first {min(12, r.n_transitions)} of "
+                          f"{r.n_transitions} transitions):"]
+    lines += [f"  t={tr['t']:7.1f}  {tr['from']} -> {tr['to']}" for tr in r.transitions[:12]]
+    lines.append("dryrun ok")
+    assert _mask_wall(capsys.readouterr().out) == _mask_wall("\n".join(lines) + "\n")
+
+
+@pytest.mark.parametrize("option", [
+    dict(shards=2), dict(telemetry=True), dict(monitor=True), dict(lineage=True),
+    dict(trace="x.json"), dict(fault_plan=object()), dict(retry=True),
+    dict(checkpoint_dir="ckpt"), dict(resume=True)])
+def test_options_of_later_slices_raise(option):
+    with pytest.raises(NotImplementedError, match="Slice"):
+        harness.run_scenario(SCENARIO, ticks=2, device="cpu", **option)
