@@ -24,7 +24,8 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      ticks in live mode at the default deployment (D=4, W=512, a 2^20-
      node, 2^21-edge store), with the launch counters set to 0 just
      before and read just after;
-  7. runs that query path again with spans on and under torch.profiler;
+  7. runs that query path again, its first 40 ticks, with spans on and
+     under torch.profiler;
   8. runs the uncontrolled query loop (seed 0, 40 ticks, 2^12/2^14
      store, W=512) on the card and on the host and requires equal
      stores, sketches, snapshots and query answers;
@@ -50,7 +51,29 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      sampled lanes and tick counts that differ (printed), then, on one
      shared record stream, the uncontrolled loop with compression on
      both devices (equal stores, dictionaries and reports), and on the
-     card the raw and the compressed loop (byte-identical stores).
+     card the raw and the compressed loop (byte-identical stores);
+ 14. drives the kernel-ops entry point's `sort_dedup` (K2) at 64 to 2^20
+     keys of six kinds (5 values, n/4, 2^31, all equal, sorted,
+     reversed), counters set to 0 just before and read just after, holds
+     sorted, order and head bit for bit against the plain version and
+     `dedup_sorted_counts` on both, and times the kernel, the plain
+     version and `torch.sort`;
+ 15. drives the entry point's Bloom ops (K6a probe, K6b build) at 2 to
+     64 rows and 64 to 16,384 keys and `bloom_diversity` over 120 Zipf
+     batches into one 64-row filter, the same way, held bit for bit
+     against the plain versions (no false negatives, inputs unchanged),
+     and times them;
+ 16. drives the sharded ingest CLI, `launch.ingest --shards 4
+     --dict-compress`, for 120 ticks at the default deployment, with the
+     launch counters set to 0 just before and read just after;
+ 17. runs that loop again, spans on and under torch.profiler for ticks
+     40 to 79;
+ 18. drives the workload CLI's own example, `launch.workload --scenario
+     flash_crowd --shards 4 --sketch-control`, at its default deployment
+     (240 ticks), the same way;
+ 19. runs the sharded loop (2 shards, 2^12/2^14 store, 40 ticks,
+     `--dict-compress`) on the card, and on the host replaying the card's
+     per-shard decisions: equal stores, dictionaries and reports.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
 JSON line.  It exits non-zero without a CUDA device or without the port
@@ -88,6 +111,16 @@ MINE_LANES = (64, 8_192, 65_536)  # a small batch, the path's edge-table cap, th
 WORKLOAD_ARGV = ["--scenario", "flash_crowd", "--dict-compress"]  # 240 ticks, 2^20/2^21
 DRYRUN_TICKS = 60
 H100_FP32_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA H100 SXM data sheet
+DEDUP_LANES = (64, 1_024, 8_192, 16_384, 65_536, 1 << 20)  # to one CTA's tile, the VMEM block, 2^20
+DEDUP_KINDS = ("5", "n/4", "2^31", "equal", "sorted", "reversed")
+BLOOM_ROWS = (2, 16, 64)
+BLOOM_LANES = (64, 1_024, 16_384)  # up to the default node table's 16,384 lanes
+DIVERSITY_STEPS, DIVERSITY_ROWS = 120, 64
+SHARDS = 4
+PROFILED_TICKS = 40  # the profiled query and sharded windows (phases 7 and 17)
+SHARDED_ARGV = ["--shards", str(SHARDS), "--dict-compress", "--ticks", str(MAIN_TICKS)]
+SHARDED_WORKLOAD_ARGV = ["--scenario", "flash_crowd", "--shards", str(SHARDS),
+                         "--sketch-control"]  # 240 ticks, 2^20/2^21
 QUERY_ARGV = ["--ticks", str(MAIN_TICKS), "--mode", "live", "--depth", "4", "--width", "512",
               "--node-cap", str(1 << 20), "--edge-cap", str(1 << 21)]
 
@@ -408,13 +441,17 @@ def query_path(torch):
 
 
 def query_breakdown(torch):
-    """Phase 7: where a tick of the query path goes (phase 6's run with
-    spans on and under torch.profiler)."""
+    """Phase 7: where a tick of the query path goes (phase 6's run, cut
+    to its first PROFILED_TICKS ticks, with spans on and under
+    torch.profiler)."""
     from repro_torch.launch import query
     from repro_torch.telemetry.spans import TelemetryRegistry
 
     reg = TelemetryRegistry(enabled=True)
-    _profiled(torch, "query breakdown", reg, lambda: query.run(QUERY_ARGV, telemetry=reg))
+    argv = QUERY_ARGV[:]
+    argv[argv.index("--ticks") + 1] = str(PROFILED_TICKS)
+    _profiled(torch, "query breakdown", reg, lambda: query.run(argv, telemetry=reg),
+              ticks=PROFILED_TICKS)
 
 
 def query_cuda_vs_cpu(torch):
@@ -752,6 +789,360 @@ def workload_cuda_vs_cpu(torch):
           f"equal, raw == compressed store on the card: {json.dumps(cg)}", flush=True)
 
 
+def _dedup_keys(rng, n, kind):
+    """n uint32 keys (as int64) of one kind; the random kinds hold 0xFFFFFFFF."""
+    if kind == "equal":
+        return np.full(n, 123_456_789, np.int64)
+    if kind in ("sorted", "reversed"):
+        keys = np.sort(rng.integers(0, n, size=n))
+        return keys if kind == "sorted" else keys[::-1].copy()
+    keys = rng.integers(0, {"5": 5, "n/4": n // 4, "2^31": 2**31}[kind], size=n)
+    keys[rng.integers(0, n, size=max(n // 16, 1))] = 2**32 - 1
+    return keys
+
+
+def _dedup_bound(n):
+    """(least ms, what bounds it) for one sort_dedup call: 16 bytes a
+    lane, what the function's uint32 data needs (key read; key, int32
+    position and head written; the port's int64 carrier for the keys is
+    not counted) against the network's compare-exchanges,
+    log2(n)(log2(n)+1)/2 stages of n/2 each, one operation apiece at the
+    float32 peak."""
+    stages = n.bit_length() * (n.bit_length() - 1) // 2
+    bytes_s = 16 * n / H100_BYTES_PER_S
+    ops_s = stages * (n // 2) / H100_FP32_PER_S
+    return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
+
+
+def dedup_vs_plain(torch, dev):
+    """Phase 14: the kernel-ops entry point's sort_dedup (K2) at every
+    shape, with the launch counters set to 0 just before and read just
+    after; each result held bit for bit against the plain version, and
+    dedup_sorted_counts equal on both; then the kernel, the plain version
+    and torch.sort (the library yardstick) timed."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.edge_dedup import sort_dedup_plain
+
+    rng = np.random.default_rng(3)
+    inputs = [(n, kind, torch.from_numpy(_dedup_keys(rng, n, kind)).to(dev))
+              for n in DEDUP_LANES for kind in DEDUP_KINDS]
+    build.launches.clear()
+    outs = []
+    for _, _, keys in inputs:
+        got = ops.sort_dedup(keys)
+        outs.append((got, ops.dedup_sorted_counts(got[0], got[2])))
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    if launches.get("sort_dedup", 0) != len(inputs):
+        raise AssertionError(f"expected one sort_dedup launch per call: {launches}")
+    rows = []
+    for (n, kind, keys), (got, got_counts) in zip(inputs, outs):
+        want = sort_dedup_plain(keys)
+        want_counts = ops.dedup_sorted_counts(want[0], want[2])
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        if err != 0 or not all(torch.equal(g, w) for g, w in zip(got + got_counts,
+                                                                 want + want_counts)):
+            raise AssertionError(f"sort_dedup kernel != plain: n={n} {kind} max_abs_err={err}")
+        if not torch.equal(keys[got[1].long()], got[0]):
+            raise AssertionError(f"sort_dedup order does not sort the keys: n={n} {kind}")
+        row = {"lanes": n, "keys": kind, "runs": int(got_counts[1]), "max_abs_err": err}
+        if kind == "n/4":
+            bound_ms, bound_by = _dedup_bound(n)
+            row.update(ms=_time_ms(torch, ops.sort_dedup, (), (keys,), KERNEL_REPS),
+                       plain_ms=_time_ms(torch, sort_dedup_plain, (), (keys,), PLAIN_REPS),
+                       library_ms=_time_ms(torch, lambda k: torch.sort(k), (), (keys,),
+                                           KERNEL_REPS),
+                       bound_ms=bound_ms, bound_by=bound_by)
+        rows.append(row)
+        print("dedup", json.dumps(row), flush=True)
+    print("sort_dedup kernel == plain bit for bit (tolerance 0), dedup_sorted_counts equal, "
+          f"at all {len(rows)} shapes; library_ms is torch.sort, whose tie order differs "
+          "(a yardstick of time only)", flush=True)
+    return rows, launches
+
+
+def bloom_vs_plain(torch, dev):
+    """Phase 15: the kernel-ops entry point's Bloom ops (K6a probe, K6b
+    build) at every shape and bloom_diversity over successive Zipf
+    batches into one filter, with the launch counters set to 0 just
+    before and read just after; each result held bit for bit against the
+    plain versions; then both kernels and plain versions timed."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.bloom import (
+        LANES, _bit_coords, bloom_build_plain, bloom_probe_plain, init_bitmap)
+
+    rng = np.random.default_rng(4)
+    cases = []
+    for rows in BLOOM_ROWS:
+        for n in BLOOM_LANES:
+            # a filter already in use: a few bits set in each word
+            start = torch.from_numpy(
+                (rng.integers(0, 2**32, size=(rows, LANES), dtype=np.uint32)
+                 & np.uint32(0x00100001)).view(np.int32)).to(dev)
+            keys = torch.from_numpy(rng.integers(0, 2**32, size=n)).to(dev)
+            queries = torch.cat([keys[: n // 2],
+                                 torch.from_numpy(rng.integers(0, 2**32, size=n // 2)).to(dev)])
+            cases.append((rows, n, start, keys, queries))
+    pool = rng.integers(0, 2**32, size=1 << 18)
+    batches = [torch.from_numpy(pool[np.minimum(rng.zipf(ZIPF_A, size=BLOOM_LANES[-1]),
+                                                pool.size) - 1]).to(dev)
+               for _ in range(DIVERSITY_STEPS)]
+
+    build.launches.clear()
+    built = [ops.bloom_build(keys, start) for _, _, start, keys, _ in cases]
+    hits = [ops.bloom_probe(q, b) for (_, _, _, _, q), b in zip(cases, built)]
+    bm = init_bitmap(DIVERSITY_ROWS, device=dev)
+    steps = []
+    for batch in batches:
+        rho, new_bm = ops.bloom_diversity(batch, bm)
+        steps.append((bm, rho, new_bm))
+        bm = new_bm
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    want_each = len(cases) + DIVERSITY_STEPS
+    if launches.get("bloom_build", 0) != want_each or launches.get("bloom_probe", 0) != want_each:
+        raise AssertionError(f"expected {want_each} launches of each Bloom kernel: {launches}")
+
+    out = []
+    for (rows, n, start, keys, queries), b, hit in zip(cases, built, hits):
+        before = start.clone()
+        want_b = bloom_build_plain(keys, start)
+        want_hit = bloom_probe_plain(queries, want_b)
+        err = max(int((b != want_b).sum()), int((hit - want_hit).abs().max()))
+        if err or not (torch.equal(b, want_b) and torch.equal(hit, want_hit)):
+            raise AssertionError(f"bloom kernels != plain: rows={rows} n={n} max_abs_err={err}")
+        if not bool((ops.bloom_probe(keys, b) == 1).all()):
+            raise AssertionError(f"bloom false negative: rows={rows} n={n}")
+        if not torch.equal(start, before):
+            raise AssertionError("bloom_build changed its input bitmap")
+        # least bytes: the uint32 keys (4 B each, not the port's int64
+        # carrier) read; a probe reads the distinct words it tests and
+        # writes its int32 hits, a build reads the bitmap and writes its
+        # new copy
+        words = rows * LANES
+        touched = int(torch.unique(torch.cat([_bit_coords(queries, r, words)[0]
+                                              for r in range(4)])).numel())
+        probe_bytes, build_bytes = 4 * n + 4 * touched + 4 * n, 4 * n + 2 * 4 * words
+        row = {"rows": rows, "lanes": n, "hit_share": float(hit.float().mean()),
+               "max_abs_err": err,
+               "probe_ms": _time_ms(torch, ops.bloom_probe, (), (queries, b), KERNEL_REPS),
+               "probe_plain_ms": _time_ms(torch, bloom_probe_plain, (), (queries, b),
+                                          PLAIN_REPS),
+               "probe_bound_ms": probe_bytes / H100_BYTES_PER_S * 1e3,
+               "build_ms": _time_ms(torch, ops.bloom_build, (), (keys, start), KERNEL_REPS),
+               "build_plain_ms": _time_ms(torch, bloom_build_plain, (), (keys, start),
+                                          PLAIN_REPS),
+               "build_bound_ms": build_bytes / H100_BYTES_PER_S * 1e3}
+        out.append(row)
+        print("bloom", json.dumps(row), flush=True)
+    for i, (bm_in, rho, new_bm) in enumerate(steps):
+        before = bm_in.clone()
+        hit = bloom_probe_plain(batches[i], bm_in)
+        want_rho = 1.0 - hit.to(torch.float32).mean()
+        if not (torch.equal(rho, want_rho) and torch.equal(new_bm,
+                                                         bloom_build_plain(batches[i], bm_in))):
+            raise AssertionError(f"bloom_diversity kernel != plain at step {i}")
+        if not torch.equal(bm_in, before):
+            raise AssertionError("bloom_diversity changed its input bitmap")
+    rhos = [float(r) for _, r, _ in steps]
+    print(f"bloom_diversity: {DIVERSITY_STEPS} Zipf batches of {BLOOM_LANES[-1]} into one "
+          f"{DIVERSITY_ROWS}-row filter equal to plain on every step; rho first "
+          f"{rhos[0]} last {rhos[-1]}", flush=True)
+    print("bloom_probe and bloom_build kernels == plain bit for bit (tolerance 0) at all "
+          f"{len(out)} shapes, no false negatives, inputs unchanged", flush=True)
+    return out, launches
+
+
+def sharded_path(torch):
+    """Phase 16: the ingest CLI sharded with GraphZip at the default
+    deployment, with the launch counters set to 0 just before and read
+    just after."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import ingest
+
+    build.launches.clear()
+    t0 = time.perf_counter()
+    rep, pipe = ingest.main(SHARDED_ARGV)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    counters = pipe.metrics.counters
+    commits, encodes = counters["commit"], counters["commit"] + counters["commit-failed"]
+    want = {"fused_upsert": 3 * commits,  # 2 store sweeps + 1 dictionary admit
+            "pattern_mine": encodes}
+    if not commits or any(launches.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"sharded path launches {launches}, expected {want}")
+    mus = rep.mu_arrays()
+    if not (rep.total_records == sum(r.total_records for r in rep.shards) > 0
+            and all(len(m) and np.isfinite(m).all() for m in mus)
+            and int(pipe.store.n_nodes) > 0 and int(pipe.store.n_edges) > 0):
+        raise AssertionError("sharded path produced no finite, non-empty result")
+    dstage = pipe.stages[0]
+    print("sharded path: " + json.dumps({
+        "ticks": MAIN_TICKS, "shards": len(rep.shards), "records": rep.total_records,
+        "instructions": rep.total_instructions, "raw": rep.raw_instructions,
+        "shard_records": [r.total_records for r in rep.shards],
+        "mu_mean": [float(m.mean()) for m in mus], "mu_max": [float(m.max()) for m in mus],
+        "buffer_hwm": rep.max_buffered, "spills": rep.spill_events,
+        "drains": rep.drain_events, "mean_compression": rep.mean_compression,
+        "store_nodes": int(pipe.store.n_nodes), "store_edges": int(pipe.store.n_edges),
+        "dict": dstage.stats(), "commits": commits, "wall_s": wall_s,
+        "wall_ms_per_tick": wall_s * 1e3 / MAIN_TICKS, "launches": launches}), flush=True)
+    return launches
+
+
+def sharded_breakdown(torch):
+    """Phase 17: where a tick of the sharded path goes.  Phase 16's
+    deployment from the ingest CLI's own builder: PROFILED_TICKS ticks
+    run first with spans off, then the next PROFILED_TICKS with spans on
+    and under torch.profiler (the profiler slows a tick some twentyfold,
+    so the window is short); the spans are summed over shards."""
+    import itertools
+
+    from repro_torch.api import MetricsHub
+    from repro_torch.launch import ingest
+    from repro_torch.telemetry.spans import TelemetryRegistry
+
+    reg = TelemetryRegistry(enabled=False)
+    b = ingest.cli_builder(ingest.parse_args(SHARDED_ARGV))
+    pipe = b.with_metrics(MetricsHub(telemetry=reg)).build()
+    pipe.transform.telemetry = reg
+    pipe.sink.ingestor.telemetry = reg
+    ticks = pipe.source.ticks()
+    pipe.run(itertools.islice(ticks, PROFILED_TICKS), max_ticks=PROFILED_TICKS)
+    reg.enabled = True
+    _profiled(torch, f"sharded breakdown (ticks {PROFILED_TICKS} to {2 * PROFILED_TICKS - 1})",
+              reg, lambda: pipe.run(itertools.islice(ticks, PROFILED_TICKS),
+                                    max_ticks=PROFILED_TICKS), ticks=PROFILED_TICKS)
+
+
+def sharded_workload_path(torch):
+    """Phase 18: the workload CLI's own example, sharded and
+    sketch-guided, at its default deployment, with the launch counters
+    set to 0 just before and read just after."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import workload
+
+    seen = {"ticks_with_records": 0, "commits": 0}
+
+    def count(ev):
+        if ev.kind == "tick" and ev.payload["raw"] > 0:
+            seen["ticks_with_records"] += 1
+        elif ev.kind == "commit":
+            seen["commits"] += 1
+
+    build.launches.clear()
+    t0 = time.perf_counter()
+    code, rep = workload.run(SHARDED_WORKLOAD_ARGV, on_event=count)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    want = {"fused_upsert": 2 * seen["commits"],  # the node and edge sweeps
+            "sketch_scatter": seen["commits"]}  # the QuerySink absorbs every commit
+    extra = launches.get("traffic_ids", 0) - seen["ticks_with_records"]
+    if code != 0 or extra not in (0, 1) or any(launches.get(k, 0) != v
+                                               for k, v in want.items()):
+        raise AssertionError(f"sharded workload path launches {launches}, expected {want} "
+                             f"and {seen['ticks_with_records']} or one more traffic_ids")
+    if not (rep.total_records > 0 and rep.shards == SHARDS and np.isfinite(rep.mu_mean)
+            and rep.store_nodes > 0 and rep.store_edges > 0):
+        raise AssertionError(f"sharded workload path produced no result: {rep.summary()}")
+    print("sharded workload path: " + json.dumps({
+        **{k: v for k, v in rep.to_dict().items() if not isinstance(v, (list, dict))},
+        "action_counts": rep.action_counts, "commits": seen["commits"], "wall_s": wall_s,
+        "records_per_wall_s": rep.total_records / wall_s,
+        "wall_ms_per_tick": wall_s * 1e3 / rep.ticks, "launches": launches}), flush=True)
+    return launches
+
+
+# beta_e, in hold and throttle rows, is the controller's own float32 RLS
+# prediction (ROADMAP F2): held at F2's relative tolerance, as
+# tests/test_torch_query_pipeline.py holds the hint; every other sample
+# field exactly
+PREDICTED_SAMPLE, BETA_PRED_RTOL = "beta_e", 2.5e-3
+
+
+def _sharded_loop(device, decisions=None):
+    """The sharded loop of phase 19 on `device`: returns (pipe, report,
+    dictionary stage, per-shard decisions).  With `decisions`, each
+    shard's controller replays them in place of its own."""
+    import dataclasses
+
+    from repro_torch.api import PipelineBuilder
+    from repro_torch.configs.paper_ingest import IngestConfig
+    from repro_torch.core.buffer import BufferController
+    from repro_torch.ingest.sources import BurstyTweetSource
+
+    class Replay(BufferController):
+        def __init__(self, cfg, seq, **kw):
+            super().__init__(cfg, **kw)
+            self._seq = iter(seq)
+
+        def decide(self, size, density, now=None):
+            dec = super().decide(size, density, now)
+            action, beta = next(self._seq)
+            self.beta = beta
+            return dataclasses.replace(dec, action=action, beta=beta)
+
+    cfg = IngestConfig(store_nodes=1 << 12, store_edges=1 << 14)
+    b = (PipelineBuilder(cfg, device=device).with_source(BurstyTweetSource(seed=0))
+         .with_compression(capacity=4096).sharded(2))
+    pipe = b.build()
+    seen = [[] for _ in pipe.shards]
+    for si, shard in enumerate(pipe.shards):
+        if decisions is not None:
+            shard.controller = Replay(cfg, decisions[si], device=device)
+        shard.controller.on_decision = lambda d, si=si: seen[si].append((d.action, d.beta))
+    rep = pipe.run(max_ticks=40)
+    return pipe, rep, b.dictionary_stage, seen
+
+
+def sharded_cuda_vs_cpu(torch):
+    """Phase 19: the sharded loop with GraphZip on the card, and on the
+    host replaying the card's per-shard decisions: equal stores,
+    dictionaries and reports."""
+    from repro_torch import convert
+
+    runs = {}
+    decisions = None
+    for device in ("cuda", "cpu"):
+        pipe, rep, dstage, seen = _sharded_loop(device, decisions)
+        decisions = seen
+        runs[device] = (
+            convert.store_to_numpy(pipe.store), convert.dictionary_to_numpy(dstage.dct),
+            {"records": rep.total_records, "instructions": rep.total_instructions,
+             "raw": rep.raw_instructions, "hwm": rep.max_buffered,
+             "spills": rep.spill_events, "drains": rep.drain_events,
+             "actions": [r.actions for r in rep.shards],
+             "commits": len(pipe.sink.ingestor.commits),
+             "refs": sum(c.refs for c in pipe.sink.ingestor.commits), "dict": dstage.stats()},
+            [r.samples for r in rep.shards], [r.compression_ratios for r in rep.shards])
+    (sg, dg, cg, smg, crg), (sc, dc, cc, smc, crc) = runs["cuda"], runs["cpu"]
+    for name in sg:
+        if not np.array_equal(sg[name], sc[name]):
+            raise AssertionError(f"cuda and cpu sharded stores differ in {name}")
+    for name in dg:
+        if not np.array_equal(dg[name], dc[name]):
+            raise AssertionError(f"cuda and cpu sharded dictionaries differ in {name}")
+    differ = sorted({k for a, b in zip(smg, smc) for k in a
+                     if k != PREDICTED_SAMPLE and not np.array_equal(a[k], b[k])})
+    beta_e_rel = max(float(np.max(np.abs(a[PREDICTED_SAMPLE] - b[PREDICTED_SAMPLE])
+                                  / np.maximum(np.abs(b[PREDICTED_SAMPLE]), 1e-30),
+                                  initial=0.0))
+                     for a, b in zip(smg, smc))
+    if beta_e_rel > BETA_PRED_RTOL:
+        differ.append(f"{PREDICTED_SAMPLE} (relative gap {beta_e_rel} > {BETA_PRED_RTOL})")
+    if cg != cc or differ or not all(np.array_equal(a, b) for a, b in zip(crg, crc)):
+        raise AssertionError(f"cuda and cpu sharded reports differ: samples {differ}, "
+                             f"{cg} vs {cc}")
+    if cg["refs"] == 0 or not all(cg["actions"]):
+        raise AssertionError(f"the sharded loop made no references or a shard never ran: {cg}")
+    print("cuda vs cpu sharded loop (2 shards, --dict-compress, the card's decisions replayed "
+          f"on the host) equal, every sample field exactly but {PREDICTED_SAMPLE}, whose "
+          f"largest relative gap is {beta_e_rel} (tolerance {BETA_PRED_RTOL}): "
+          + json.dumps({k: v for k, v in cg.items() if k != "actions"}), flush=True)
+
+
 def main():
     import torch
 
@@ -800,6 +1191,12 @@ def main():
     path_batch = phase(11, workload_breakdown, torch)
     mine_rows = phase(12, mine_vs_plain, torch, dev, path_batch)
     phase(13, workload_cuda_vs_cpu, torch)
+    dedup_rows, dedup_launches = phase(14, dedup_vs_plain, torch, dev)
+    bloom_rows, bloom_launches = phase(15, bloom_vs_plain, torch, dev)
+    phase(16, sharded_path, torch)
+    phase(17, sharded_breakdown, torch)
+    phase(18, sharded_workload_path, torch)
+    phase(19, sharded_cuda_vs_cpu, torch)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["load"] == 0.0
@@ -812,6 +1209,10 @@ def main():
                 and r["lanes"] == 2048 and "ms" in r)
     # the largest batch the workload path mined
     mref = next(r for r in mine_rows if r["batch"] == "path")
+    # the reference's VMEM block with the bench's key distribution
+    dref = next(r for r in dedup_rows if r["lanes"] == 65_536 and "ms" in r)
+    # the default node table's lanes into the default 64-row filter
+    bref = next(r for r in bloom_rows if r["rows"] == 64 and r["lanes"] == 16_384)
     kernels = [{
         "name": "fused_upsert", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_upsert.cu",
@@ -849,6 +1250,37 @@ def main():
         "ms": mref["ms"], "plain_ms": mref["plain_ms"], "bound_ms": mref["bound_ms"],
         "bound_by": mref["bound_by"], "library_ms": None,
         "shape": {k: mref[k] for k in ("batch", "lanes", "valid")},
+    }, {
+        "name": "sort_dedup", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sort_dedup.cu",
+        "replaces": "src/repro/kernels/edge_dedup.py:68",
+        "path": "kernels.ops.sort_dedup (phase 14)",
+        "launches": dedup_launches["sort_dedup"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in dedup_rows),
+        "ms": dref["ms"], "plain_ms": dref["plain_ms"], "bound_ms": dref["bound_ms"],
+        "bound_by": dref["bound_by"], "library_ms": dref["library_ms"],
+        "library": "torch.sort (another tie order: a yardstick of time only)",
+        "shape": {k: dref[k] for k in ("lanes", "keys")},
+    }, {
+        "name": "bloom_probe", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bloom.cu",
+        "replaces": "src/repro/kernels/bloom.py:77",
+        "path": "kernels.ops.bloom_probe and bloom_diversity (phase 15)",
+        "launches": bloom_launches["bloom_probe"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in bloom_rows),
+        "ms": bref["probe_ms"], "plain_ms": bref["probe_plain_ms"],
+        "bound_ms": bref["probe_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shape": {k: bref[k] for k in ("rows", "lanes")},
+    }, {
+        "name": "bloom_build", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bloom.cu",
+        "replaces": "src/repro/kernels/bloom.py:97",
+        "path": "kernels.ops.bloom_build and bloom_diversity (phase 15)",
+        "launches": bloom_launches["bloom_build"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in bloom_rows),
+        "ms": bref["build_ms"], "plain_ms": bref["build_plain_ms"],
+        "bound_ms": bref["build_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shape": {k: bref[k] for k in ("rows", "lanes")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,9 @@ The paper's pipeline decomposed into swappable protocols: `Source`,
 `Consumer` (`SimulatedConsumer`, `MeasuredConsumer`) and `Sink`
 (`GraphStoreSink`).  `StreamPipeline` wires one of each into the
 paper's control loop; `PipelineBuilder` is the fluent facade;
-`MetricsHub` carries the per-tick trace and event hooks.
+`MetricsHub` carries the per-tick trace and event hooks;
+`ShardedPipeline` runs one controller per user-hash shard over one
+shared sink and consumer.
 """
 from repro_torch.api.protocols import Consumer, Sink, Source, Stage, TickContext
 from repro_torch.api.consumers import MeasuredConsumer, SimulatedConsumer
@@ -13,6 +15,7 @@ from repro_torch.api.sinks import GraphStoreSink
 from repro_torch.api.stages import BufferControlStage, FilterStage, TransformStage
 from repro_torch.api.metrics import MetricsHub, PipelineEvent, PipelineReport
 from repro_torch.api.pipeline import StreamPipeline
+from repro_torch.api.sharded import ShardedPipeline, ShardedReport, default_shard_key
 from repro_torch.api.builder import PipelineBuilder
 
 __all__ = [
@@ -22,4 +25,5 @@ __all__ = [
     "FilterStage", "TransformStage", "BufferControlStage",
     "MetricsHub", "PipelineEvent", "PipelineReport",
     "StreamPipeline", "PipelineBuilder",
+    "ShardedPipeline", "ShardedReport", "default_shard_key",
 ]

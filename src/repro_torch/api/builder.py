@@ -1,7 +1,7 @@
 """`PipelineBuilder` — the fluent facade over the composable API.
 Counterpart of `repro.api.builder` (the core methods, extra record
 stages, the query path: the sketch stage, the query sink and
-sketch-guided control, and GraphZip dictionary compression).
+sketch-guided control, GraphZip dictionary compression, and sharding).
 
     pipe = (PipelineBuilder(IngestConfig(cpu_max=0.55), device="cuda")
             .with_source(BurstyTweetSource(seed=0))
@@ -11,8 +11,9 @@ sketch-guided control, and GraphZip dictionary compression).
             .build())
     report = pipe.run(max_ticks=300)
 
-Every part not set explicitly gets the paper default, made on the
-builder's `device` (default the card).
+`sharded(n)` switches `build()` to a `ShardedPipeline`.  Every part not
+set explicitly gets the paper default, made on the builder's `device`
+(default the card).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from repro_torch.api.consumers import MeasuredConsumer, SimulatedConsumer
 from repro_torch.api.metrics import MetricsHub, PipelineEvent
 from repro_torch.api.pipeline import StreamPipeline
+from repro_torch.api.sharded import ShardedPipeline
 from repro_torch.api.sinks import GraphStoreSink
 from repro_torch.api.stages import BufferControlStage, FilterStage, TransformStage
 from repro_torch.compress import CompressingTransform, DictionaryStage
@@ -53,6 +55,8 @@ class PipelineBuilder:
         self._sink = None
         self._controller: Optional[BufferController] = None
         self._spill_dir: Optional[str] = None
+        self._n_shards = 1
+        self._shard_key: Optional[Callable[[dict], str]] = None
         self._metrics: Optional[MetricsHub] = None
         self._hooks = []
         self._stages = []
@@ -165,6 +169,16 @@ class PipelineBuilder:
         self._controller = controller
         return self
 
+    def sharded(self, n_shards: int,
+                shard_key: Optional[Callable[[dict], str]] = None) -> "PipelineBuilder":
+        """Build a `ShardedPipeline` of `n_shards` controlled shards,
+        partitioned by `shard_key` (default: the record's user)."""
+        if n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
+        self._n_shards = n_shards
+        self._shard_key = shard_key
+        return self
+
     # ---- behaviour knobs ----
     def uncontrolled(self, flag: bool = True) -> "PipelineBuilder":
         self._uncontrolled = flag
@@ -206,7 +220,7 @@ class PipelineBuilder:
                 stages.append(st)
         return stages
 
-    def build(self) -> StreamPipeline:
+    def build(self) -> Union[StreamPipeline, ShardedPipeline]:
         dev = self.device
         filt = self._filter or FilterStage(self._keywords)
         transform = self._transform or TransformStage(
@@ -243,29 +257,53 @@ class PipelineBuilder:
             ingestor = getattr(sink, "ingestor", None)
             if ingestor is not None and hasattr(ingestor, "commit_hooks"):
                 ingestor.commit_hooks.append(self._dict_stage.observe_commit)
-        buffer_stage = BufferControlStage(
-            controller=self._controller, cfg=self.cfg,
-            spill_dir=self._spill_dir, device=dev)
+        if self._n_shards > 1:
+            if self._uncontrolled:
+                raise ValueError("sharded pipelines are always controlled")
+            if self._controller is not None:
+                raise ValueError("with_controller() is single-shard only: "
+                                 "each shard builds its own controller")
+            pipe = ShardedPipeline(
+                cfg=self.cfg,
+                n_shards=self._n_shards,
+                source=self._source,
+                filter_stage=filt,
+                transform=transform,
+                consumer=consumer,
+                sink=sink,
+                spill_dir=self._spill_dir,
+                shard_key=self._shard_key,
+                metrics=metrics,
+                stages=self._resolve_stages(),
+                device=dev,
+            )
+            controllers = [s.controller for s in pipe.shards]
+        else:
+            buffer_stage = BufferControlStage(
+                controller=self._controller, cfg=self.cfg,
+                spill_dir=self._spill_dir, device=dev)
+            pipe = StreamPipeline(
+                cfg=self.cfg,
+                source=self._source,
+                filter_stage=filt,
+                transform=transform,
+                buffer_stage=buffer_stage,
+                consumer=consumer,
+                sink=sink,
+                uncontrolled=self._uncontrolled,
+                metrics=metrics,
+                stages=self._resolve_stages(),
+            )
+            controllers = [buffer_stage.controller]
         if self._sketch_guided:
-            controller = buffer_stage.controller
-
+            # live sketch events -> every controller's diversity hint
             def _guide(ev):
                 if ev.kind == "sketch":
-                    controller.observe_sketch(ev.payload)
+                    for c in controllers:
+                        c.observe_sketch(ev.payload)
 
             metrics.subscribe(_guide)
-        return StreamPipeline(
-            cfg=self.cfg,
-            source=self._source,
-            filter_stage=filt,
-            transform=transform,
-            buffer_stage=buffer_stage,
-            consumer=consumer,
-            sink=sink,
-            uncontrolled=self._uncontrolled,
-            metrics=metrics,
-            stages=self._resolve_stages(),
-        )
+        return pipe
 
     def run(self, max_ticks: int = 300):
         """Build and run in one call (source must be set)."""

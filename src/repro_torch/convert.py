@@ -13,7 +13,9 @@ reference's arrays), so the port never imports the reference:
   * `dictionary_from_numpy` / `dictionary_to_numpy`: the same for a
     GraphZip `PatternDictionary` (`sig` and `psig` as uint64);
   * `controller_from_numpy`: the two RLS states (theta, P, n) of a
-    `PerfMon.state()` dict, into a port `BufferController`.
+    `PerfMon.state()` dict, into a port `BufferController`;
+  * `bloom_bitmap_from_numpy` / `bloom_bitmap_to_numpy`: a Bloom filter,
+    (W, 1024) uint32 on the numpy side, int32 with the same bits here.
 """
 from __future__ import annotations
 
@@ -92,6 +94,18 @@ def dictionary_from_numpy(arrays: Mapping[str, np.ndarray],
 def dictionary_to_numpy(d: PatternDictionary) -> Dict[str, np.ndarray]:
     """The port dictionary's arrays as numpy, `sig` and `psig` as uint64."""
     return _to_numpy(d)
+
+
+def bloom_bitmap_from_numpy(bitmap: np.ndarray,
+                            device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """A port Bloom filter on `device` from a (W, 1024) uint32 bitmap."""
+    a = np.ascontiguousarray(np.asarray(bitmap, dtype=np.uint32))
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def bloom_bitmap_to_numpy(bitmap: torch.Tensor) -> np.ndarray:
+    """The port Bloom filter as a (W, 1024) uint32 numpy bitmap."""
+    return bitmap.cpu().numpy().view(np.uint32)
 
 
 def controller_from_numpy(controller, perfmon_state: Mapping) -> None:

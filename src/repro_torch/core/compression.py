@@ -22,6 +22,7 @@ import torch
 
 SIGN_BIT = -(1 << 63)  # int64 with only bit 63 set
 SENTINEL = -1  # all-ones uint64: marks invalid, sorts last unsigned
+_M32 = 0xFFFFFFFF
 
 # Bijective packing layout for keys: [1b tag=0][1b pack=1][27b src]
 # [27b dst][8b etype].  Ids that fit get an exact, collision-free key;
@@ -45,6 +46,19 @@ def flip_sign(k: torch.Tensor) -> torch.Tensor:
 def lsr(x: torch.Tensor, s: int) -> torch.Tensor:
     """Logical right shift of the uint64 bit pattern in int64 `x`."""
     return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def hash_round(k32: torch.Tensor, r: int) -> torch.Tensor:
+    """Round `r` of the uint32 splitmix-style hash that the sketch's
+    `node_hash` and the Bloom filter share, on int64 tensors holding
+    uint32 values: the reference's uint32 arithmetic, masked to 32 bits
+    after every add and multiply (a product of two 32-bit values may wrap
+    past 2^63, but its low 32 bits stay right)."""
+    c1 = (0x9E3779B9 + 0x7F4A7C15 * r) & _M32
+    x = (((k32 + c1) & _M32) * 0x85EBCA6B) & _M32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
 
 
 def key_tensor(keys, device) -> torch.Tensor:

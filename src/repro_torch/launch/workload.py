@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.workload --list
   PYTHONPATH=src python -m repro_torch.launch.workload --scenario flash_crowd --dict-compress
+  PYTHONPATH=src python -m repro_torch.launch.workload --scenario flash_crowd --shards 4 \
+      --sketch-control
   PYTHONPATH=src python -m repro_torch.launch.workload --dryrun --device cpu   # smoke, on the host
 
 Counterpart of `repro.launch.workload`, with the same flags and
@@ -11,10 +13,12 @@ pipeline through a registry scenario with the closed-loop harness
 sustained throughput, spill/drop counts, the Algorithm-2 buffer-mode
 transition timeline, table-pressure throttles and, with
 `--dict-compress`, the GraphZip dictionary's references and hit rate.
-`--dryrun` is the smoke run: a small-capacity short run that exits
-non-zero if the harness produces no records or the report does not
-serialise.  `--shards` above 1 and `--trace-out` raise until the
-slices that bring them (ROADMAP §1).
+`--shards N` partitions the stream by user over N controllers
+(`ShardedPipeline`), and the timeline then names each transition's
+shard.  `--dryrun` is the smoke run: a small-capacity short run that
+exits non-zero if the harness produces no records or the report does
+not serialise.  `--trace-out` raises until ROADMAP §1 Slice E brings
+span telemetry.
 """
 import argparse
 import json

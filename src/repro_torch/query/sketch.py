@@ -99,15 +99,7 @@ def _fold32(keys: torch.Tensor) -> torch.Tensor:
 def node_hash(keys: torch.Tensor, depth: int, width: int) -> torch.Tensor:
     """(D, n) int32 hash coordinates, one independent row per depth."""
     k32 = _fold32(keys)
-    rows = []
-    for d in range(depth):
-        c1 = (0x9E3779B9 + 0x7F4A7C15 * d) & _M32
-        x = (((k32 + c1) & _M32) * 0x85EBCA6B) & _M32
-        x = x ^ (x >> 13)
-        x = (x * 0xC2B2AE35) & _M32
-        x = x ^ (x >> 16)
-        rows.append((x % width).to(torch.int32))
-    return torch.stack(rows)
+    return torch.stack([(C.hash_round(k32, d) % width).to(torch.int32) for d in range(depth)])
 
 
 # ---------------------------------------------------------------------------

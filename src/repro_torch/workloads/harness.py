@@ -8,12 +8,12 @@ timeline, the table-pressure throttles and, with `dict_compress`, the
 GraphZip dictionary's references and hit rate.  The CLI
 (`python -m repro_torch.launch.workload`) calls it.
 
-The port runs one shard, optionally sketch-guided and with dictionary
-compression.  The reference's other options raise `NotImplementedError`
-until the slice that brings them (ROADMAP §1): sharding (Slice A item
-2), and telemetry, monitoring, lineage, traces, faults, retry and
-checkpoints (Slice E).  The report keeps every field of the
-reference's, at its inert default where the port has no such path yet.
+The port runs one shard or several (`ShardedPipeline`), optionally
+sketch-guided and with dictionary compression.  The reference's other
+options (telemetry, monitoring, lineage, traces, faults, retry and
+checkpoints) raise `NotImplementedError` until ROADMAP §1 Slice E
+brings them.  The report keeps every field of the reference's, at its
+inert default where the port has no such path yet.
 """
 from __future__ import annotations
 
@@ -147,13 +147,9 @@ def _timeline(samples: Dict, actions: List[str], shard: int) -> List[Dict]:
     return out
 
 
-def _unsupported(shards, telemetry, monitor, lineage, trace, trace_jsonl,
+def _unsupported(telemetry, monitor, lineage, trace, trace_jsonl,
                  lineage_jsonl, fault_plan, retry, checkpoint_dir, resume) -> None:
     """Raise for the reference's options the port does not have yet."""
-    if shards > 1:
-        raise NotImplementedError(
-            "shards > 1 needs ShardedPipeline, which ROADMAP §1 Slice A "
-            "item 2 brings to the port")
     slice_e = {"telemetry": telemetry, "monitor": monitor, "lineage": lineage,
                "trace": trace, "trace_jsonl": trace_jsonl,
                "lineage_jsonl": lineage_jsonl, "fault_plan": fault_plan,
@@ -193,6 +189,7 @@ def scenario_builder(
     dict_capacity: int = 4096,
     node_cap: Optional[int] = None,
     edge_cap: Optional[int] = None,
+    shards: int = 1,
     device: Union[str, torch.device, None] = None,
 ):
     """The pipeline `run_scenario` drives, not yet built: returns
@@ -215,6 +212,8 @@ def scenario_builder(
         b = b.sketch_guided()
     if dict_compress:
         b = b.with_compression(capacity=dict_capacity)
+    if shards > 1:
+        b = b.sharded(shards)
     return b, src, tally
 
 
@@ -249,11 +248,14 @@ def run_scenario(
 
     `speed` scales the simulated consumer (0.5 = the paper's half-
     capacity store engine, the setting that makes bursts bite);
-    `node_cap`/`edge_cap` shrink the store; `dict_compress` turns on the
-    GraphZip dictionary-compression path (`with_compression`).  The
-    options of later slices raise `NotImplementedError` (module
-    docstring)."""
-    _unsupported(shards, telemetry, monitor, lineage, trace, trace_jsonl,
+    `node_cap`/`edge_cap` shrink the store; `shards` > 1 partitions the
+    stream by user over that many controllers (`ShardedPipeline`);
+    `dict_compress` turns on the GraphZip dictionary-compression path
+    (`with_compression`).  The options of later slices raise
+    `NotImplementedError` (module docstring)."""
+    if shards < 1:
+        raise ValueError("shards must be >= 1")
+    _unsupported(telemetry, monitor, lineage, trace, trace_jsonl,
                  lineage_jsonl, fault_plan, retry, checkpoint_dir, resume)
     scn = get_scenario(scenario) if isinstance(scenario, str) else scenario
     ticks = int(ticks if ticks is not None else scn.ticks)
@@ -261,17 +263,30 @@ def run_scenario(
         scn, seed=seed, speed=speed, rate_scale=rate_scale,
         sketch_guided=sketch_guided, dict_compress=dict_compress,
         dict_capacity=dict_capacity, node_cap=node_cap, edge_cap=edge_cap,
-        device=device)
+        shards=shards, device=device)
     if on_event is not None:
         b = b.on_event(on_event)
     pipe = b.build()
     rep = pipe.run(max_ticks=ticks)
 
-    mu = rep.samples["mu"] if len(rep.samples["mu"]) else np.asarray([0.0])
-    delay = rep.samples["delay_s"] if len(rep.samples["delay_s"]) \
-        else np.asarray([0.0])
+    if shards > 1:
+        sub = rep.shards
+        mu = np.concatenate([r.samples["mu"] for r in sub])
+        delay = np.concatenate([r.samples["delay_s"] for r in sub])
+        transitions = [tr for si, r in enumerate(sub)
+                       for tr in _timeline(r.samples, r.actions, si)]
+        transitions.sort(key=lambda tr: tr["t"])
+        controllers = [s.controller for s in pipe.shards]
+        actions = [a for r in sub for a in r.actions]
+    else:
+        mu, delay = rep.samples["mu"], rep.samples["delay_s"]
+        transitions = _timeline(rep.samples, rep.actions, 0)
+        controllers = [pipe.buffer_stage.controller]
+        actions = list(rep.actions)
+    mu = mu if len(mu) else np.asarray([0.0])
+    delay = delay if len(delay) else np.asarray([0.0])
     counts: Dict[str, int] = {}
-    for a in rep.actions:
+    for a in actions:
         counts[a] = counts.get(a, 0) + 1
     ingestor = pipe.sink.ingestor
     commit_ms = [1e3 * c.busy_s for c in ingestor.commits if c.ok]
@@ -292,9 +307,9 @@ def run_scenario(
         spill_events=int(rep.spill_events),
         drain_events=int(rep.drain_events),
         dropped_inserts=tally.dropped,
-        pressure_throttles=pipe.buffer_stage.controller.pressure_throttles,
+        pressure_throttles=sum(c.pressure_throttles for c in controllers),
         action_counts=counts,
-        transitions=_timeline(rep.samples, rep.actions, 0),
+        transitions=transitions,
         mu_mean=float(mu.mean()),
         mu_p95=float(np.percentile(mu, 95)),
         mu_max=float(mu.max()),

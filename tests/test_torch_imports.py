@@ -43,7 +43,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                          env=_env(), cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 35 and bad == "[]", out.stdout
+    assert int(n) >= 55 and bad == "[]", out.stdout
 
 
 def test_no_port_source_imports_jax_or_the_reference():
@@ -61,6 +61,11 @@ def test_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch, tmp_pa
         ingest.main(["--ticks", "2"])
     rep, pipe = ingest.main(["--ticks", "3", "--device", "cpu"])
     assert pipe.store.device.type == "cpu" and rep.total_records > 0
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ingest.main(["--ticks", "2", "--shards", "2", "--dict-compress"])
+    rep, pipe = ingest.main(["--ticks", "3", "--device", "cpu", "--shards", "2",
+                             "--dict-compress"])
+    assert pipe.store.device.type == "cpu" and len(rep.shards) == 2 and rep.total_records > 0
 
 
 def test_query_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch):
@@ -82,16 +87,21 @@ def test_workload_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatc
         workload.main(["--dryrun", "--ticks", "2"])
     code, rep = workload.run(["--dryrun", "--ticks", "8", "--device", "cpu", "--dict-compress"])
     assert code == 0 and rep.total_records > 0 and rep.dict_compress
+    code, rep = workload.run(["--dryrun", "--ticks", "8", "--device", "cpu", "--shards", "2"])
+    assert code == 0 and rep.total_records > 0 and rep.shards == 2
 
 
 @pytest.mark.parametrize("entry", ["builder", "sink", "transform", "controller",
                                    "sketch_stage", "sketch", "scenario_source",
-                                   "dictionary_stage", "run_scenario"])
+                                   "dictionary_stage", "run_scenario", "sharded_pipeline",
+                                   "compat_pipeline", "bloom_bitmap"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
-    from repro_torch.api import GraphStoreSink, PipelineBuilder, TransformStage
+    from repro_torch.api import GraphStoreSink, PipelineBuilder, ShardedPipeline, TransformStage
     from repro_torch.compress import DictionaryStage
     from repro_torch.configs.paper_ingest import IngestConfig
     from repro_torch.core.buffer import BufferController
+    from repro_torch.core.pipeline import IngestionPipeline
+    from repro_torch.kernels.bloom import init_bitmap
     from repro_torch.query import SketchStage, init_sketch
     from repro_torch.workloads import ScenarioSource, run_scenario
 
@@ -106,6 +116,9 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "scenario_source": lambda: ScenarioSource("flash_crowd"),
         "dictionary_stage": lambda: DictionaryStage(),
         "run_scenario": lambda: run_scenario("flash_crowd", ticks=2),
+        "sharded_pipeline": lambda: ShardedPipeline(IngestConfig(), n_shards=2),
+        "compat_pipeline": lambda: IngestionPipeline(IngestConfig()),
+        "bloom_bitmap": lambda: init_bitmap(),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()

@@ -21,6 +21,8 @@ per-tick (action, beta).
     compression the same dictionary, bit for bit.
   * `launch.workload --dryrun --device cpu --dict-compress` under the
     same replay prints the reference's report, wall-clock numbers aside.
+  * `run_scenario(shards=2, sketch_guided=True)` under per-shard replay
+    gives the reference's report and store.
   * `state()`/`restore_state()` resumes a stream mid-chunk exactly.
 """
 import copy
@@ -73,8 +75,8 @@ class ReplaySource:
             yield StreamTick(t, copy.deepcopy(records))
 
 
-def _reference_run(tmp, dict_compress):
-    rec = {"ticks": [], "decisions": []}
+def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False):
+    rec = {"ticks": [], "decisions": [[] for _ in range(shards)]}
 
     class RecordingSource(RefScenarioSource):
         def ticks(self):
@@ -85,7 +87,9 @@ def _reference_run(tmp, dict_compress):
     class RecordingBuilder(RefBuilder):
         def build(self):
             pipe = super().build()
-            pipe.controller.on_decision = lambda d: rec["decisions"].append((d.action, d.beta))
+            ctrls = [s.controller for s in pipe.shards] if shards > 1 else [pipe.controller]
+            for c, dec in zip(ctrls, rec["decisions"]):
+                c.on_decision = lambda d, dec=dec: dec.append((d.action, d.beta))
             rec["pipe"], rec["dict"] = pipe, self.dictionary_stage
             return pipe
 
@@ -94,8 +98,9 @@ def _reference_run(tmp, dict_compress):
         mp.setattr(ref_harness, "PipelineBuilder", RecordingBuilder)
         with jax.enable_x64(True):
             rec["report"] = ref_harness.run_scenario(
-                SCENARIO, ticks=TICKS, seed=SEED, dict_compress=dict_compress,
-                spill_dir=str(tmp / f"ref_{dict_compress}"), **CAPS)
+                SCENARIO, ticks=TICKS, seed=SEED, dict_compress=dict_compress, shards=shards,
+                sketch_guided=sketch_guided,
+                spill_dir=str(tmp / f"ref_{dict_compress}_{shards}"), **CAPS)
             store = rec["pipe"].store
             rec["store"] = {f.name: np.asarray(getattr(store, f.name))
                             for f in dataclasses.fields(store)}
@@ -119,10 +124,16 @@ def _replaying(mp, tmp, ref):
 
     class ReplayBuilder(PipelineBuilder):
         def build(self):
-            self.with_controller(ReplayController(
-                self.cfg, ref["decisions"], spill_dir=str(tmp / "port_spill"),
-                device=self.device))
+            def replay(si):
+                return ReplayController(self.cfg, ref["decisions"][si], device=self.device,
+                                        spill_dir=str(tmp / f"port_spill{si}"))
+
+            if len(ref["decisions"]) == 1:
+                self.with_controller(replay(0))
             got["pipe"] = super().build()
+            if len(ref["decisions"]) > 1:
+                for si, shard in enumerate(got["pipe"].shards):
+                    shard.controller = replay(si)
             got["dict"] = self.dictionary_stage
             return got["pipe"]
 
@@ -206,8 +217,29 @@ def test_dryrun_cli_prints_the_reference_report(reference, tmp_path, monkeypatch
     assert _mask_wall(capsys.readouterr().out) == _mask_wall("\n".join(lines) + "\n")
 
 
+def test_sharded_run_scenario_under_replay_matches_reference(tmp_path_factory, monkeypatch):
+    """shards=2 with sketch-guided control: each port shard replays its
+    reference shard's decisions; the report (transitions tagged by
+    shard, actions and throttles over all shards) and the shared store
+    must be equal."""
+    ref = _reference_run(tmp_path_factory.mktemp("sharded"), False, shards=2,
+                         sketch_guided=True)
+    got = _replaying(monkeypatch, tmp_path_factory.mktemp("port_sharded"), ref)
+    rep = harness.run_scenario(SCENARIO, ticks=TICKS, seed=SEED, shards=2, sketch_guided=True,
+                               device="cpu", **CAPS)
+    g, w = rep.to_dict(), ref["report"].to_dict()
+    for k in WALL_FIELDS:
+        g.pop(k), w.pop(k)
+    assert g == w
+    assert rep.shards == 2 and {tr["shard"] for tr in rep.transitions} == {0, 1}
+    assert [tr["t"] for tr in rep.transitions] == sorted(tr["t"] for tr in rep.transitions)
+    store = convert.store_to_numpy(got["pipe"].store)
+    for name, arr in ref["store"].items():
+        np.testing.assert_array_equal(store[name], arr.astype(store[name].dtype), err_msg=name)
+
+
 @pytest.mark.parametrize("option", [
-    dict(shards=2), dict(telemetry=True), dict(monitor=True), dict(lineage=True),
+    dict(trace_jsonl="x.jsonl"), dict(telemetry=True), dict(monitor=True), dict(lineage=True),
     dict(trace="x.json"), dict(fault_plan=object()), dict(retry=True),
     dict(checkpoint_dir="ckpt"), dict(resume=True)])
 def test_options_of_later_slices_raise(option):
