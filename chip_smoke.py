@@ -73,7 +73,32 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      (240 ticks), the same way;
  19. runs the sharded loop (2 shards, 2^12/2^14 store, 40 ticks,
      `--dict-compress`) on the card, and on the host replaying the card's
-     per-shard decisions: equal stores, dictionaries and reports.
+     per-shard decisions: equal stores, dictionaries and reports;
+ 20. holds the flash-attention kernel (K7) against its plain version on
+     the card: the serving path's own call (qwen2.5-3b's grouped heads,
+     16,384 positions, bf16, causal), the (BH, S, d) op at S 128 to
+     4,096, d 64 and 128, f32 and bf16, causal or not, a 4,096 window at
+     S = 8,192 and a 48-key window inside a 64-key block; f32 within
+     2e-6 up to S = 1,024 and 2e-6 x S/1,024 beyond, bf16 within 2e-2;
+     times the kernel, the plain version and scaled_dot_product_attention;
+ 21. holds the SSD scan kernel (K8) against its plain version on the
+     card, y and final state within 1e-4: the serving path's own call
+     (mamba2-780m, 4 x 48 heads, 4,096 positions, chunk 256) and smaller
+     shapes (one a single chunk), and times both;
+ 22. drives the serving CLI, `launch.serve --arch qwen2.5-3b --batch 1
+     --prompt-len 16384 --gen 16`, at full width and depth (random
+     weights), counters set to 0 just before and read just after: 36
+     flash_attention launches; prints prefill and decode times, tokens
+     per second and peak memory, then profiles that prefill (K7's
+     device time) and four decode steps (device idle share, launches);
+ 23. drives `launch.serve` at its defaults (batch 4, prompt 32): the
+     materialised-attention branch, no flash_attention launch;
+ 24. drives `launch.serve --arch mamba2-780m --batch 4 --prompt-len 4096
+     --gen 16` the same way: 48 ssd_scan launches, and profiles that
+     prefill and four decode steps;
+ 25. serves one set of smoke-size float32 weights on the card and on the
+     host, both archs (the dense prefill on the chunked branch): logits
+     within 1e-4 at every step and equal greedy ids.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
 JSON line.  It exits non-zero without a CUDA device or without the port
@@ -123,6 +148,22 @@ SHARDED_WORKLOAD_ARGV = ["--scenario", "flash_crowd", "--shards", str(SHARDS),
                          "--sketch-control"]  # 240 ticks, 2^20/2^21
 QUERY_ARGV = ["--ticks", str(MAIN_TICKS), "--mode", "live", "--depth", "4", "--width", "512",
               "--node-cap", str(1 << 20), "--edge-cap", str(1 << 21)]
+H100_BF16_PER_S = 989e12  # bf16 dense tensor-core peak, NVIDIA H100 SXM data sheet
+SERVE_LONG_ARGV = ["--arch", "qwen2.5-3b", "--batch", "1", "--prompt-len", "16384",
+                   "--gen", "16"]  # over attn_full_max (8,192): the chunked branch, K7
+SERVE_DEFAULT_ARGV = []  # the CLI's defaults: qwen2.5-3b, batch 4, prompt 32, gen 16
+SERVE_SSM_ARGV = ["--arch", "mamba2-780m", "--batch", "4", "--prompt-len", "4096",
+                  "--gen", "16"]
+FLASH_PATH = (1, 16_384, 16, 2, 128)  # qwen2.5-3b's prefill in phase 22: B, S, n, m, d
+FLASH_PATH_CHUNK = 1_024  # qwen2.5-3b's attn_chunk, the plain version's KV block
+FLASH_SWEEP_S, FLASH_SWEEP_D, FLASH_SWEEP_BH = (128, 1_024, 4_096), (64, 128), 4
+SSD_PATH = (4, 4_096, 48, 64, 128, 256)  # mamba2-780m's prefill in phase 24: B, S, nh, p, N, Q
+SSD_SMALL = ((2, 64, 16, 8, 16), (2, 128, 32, 16, 32), (2, 256, 64, 64, 128),
+             (2, 128, 64, 128, 128), (8, 144, 16, 16, 16))  # (BH, S, p, N, Q); Q = S is one chunk
+SSD_TOL = 1e-4  # the reference test's float32 tolerance (tests/test_kernels.py:116)
+BF16_TOL = 2e-2  # the reference test's bf16 tolerance for K7 (tests/test_kernels.py:84)
+PARITY_TOL = 1e-4  # CUDA against CPU logits at the smoke size, float32
+
 
 
 def _random_keys(rng, n):
@@ -1143,6 +1184,357 @@ def sharded_cuda_vs_cpu(torch):
           + json.dumps({k: v for k, v in cg.items() if k != "actions"}), flush=True)
 
 
+def _flash_tol(dtype, S, torch):
+    """K7's tolerance against its plain version: the reference test's
+    2e-6 in float32 up to S = 1,024 (its largest S is 512); beyond, 2e-6
+    grown with S / 1,024, since each output sums up to S float32 terms
+    whose rounding the two versions take in different orders; bf16 at
+    the reference test's 2e-2."""
+    if dtype == torch.bfloat16:
+        return BF16_TOL
+    return 2e-6 * max(1.0, S / 1_024)
+
+
+def _valid_pairs(S, causal, window):
+    """Unmasked (query, key) pairs of one head: the work K7 must do."""
+    i = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    hi = i + 1 if causal else np.full(S, S, np.int64)
+    return int((hi - lo).sum())
+
+
+def _flash_bound(torch, q, k, causal, window):
+    """(least ms, what bounds it) for one K7 launch: 4·d flops per
+    unmasked pair per query head at the inputs' peak (bf16 tensor cores
+    or float32), against q, k, v and o each moved once at their own
+    shapes (k and v at their m kv heads)."""
+    B, S, n, d = q.shape
+    flops = 4 * d * _valid_pairs(S, causal, window) * B * n
+    peak = H100_BF16_PER_S if q.dtype == torch.bfloat16 else H100_FP32_PER_S
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    ops_s, bytes_s = flops / peak, nbytes / H100_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _close(torch, got, want, tol):
+    """(within atol = rtol = tol, largest absolute error), in float32."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    return bool(torch.all((g - w).abs() <= tol + tol * w.abs())), err
+
+
+def flash_vs_plain(torch, dev):
+    """Phase 20: K7 against its plain version on the card: the path's own
+    call (grouped heads, bf16, causal), the (BH, S, d) op over S, d,
+    dtype and causality, a 4,096 window at S = 8,192 and a 48-key window
+    inside a 64-key block; then the kernel, the plain version and
+    scaled_dot_product_attention (the yardstick only) timed at the path's
+    shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    rows = []
+    B, S, n, m, d = FLASH_PATH
+    q, k, v = (rnd(B, S, h, d, dtype=torch.bfloat16) for h in (n, m, m))
+    chunk = FLASH_PATH_CHUNK
+    got = fa.attention(q, k, v, True, None, chunk)
+    want = fa.sdpa_chunked_plain(q, k, v, True, None, chunk)
+    ok, err = _close(torch, got, want, BF16_TOL)
+    if not ok:
+        raise AssertionError(f"flash_attention kernel != plain at the path's shape: {err}")
+    bound_ms, bound_by = _flash_bound(torch, q, k, True, None)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        sdpa, sdpa_args = (lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True, enable_gqa=True)), (qt, kt, vt)
+    except TypeError:  # no enable_gqa in this torch: broadcast kv beforehand
+        kx, vx = (t.repeat_interleave(n // m, dim=1) for t in (kt, vt))
+        sdpa, sdpa_args = (lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True)), (qt, kx, vx)
+    path = {"case": "path", "B": B, "S": S, "heads": n, "kv_heads": m, "d": d,
+            "dtype": "bfloat16", "causal": True, "window": None, "tol": BF16_TOL,
+            "max_abs_err": err,
+            "ms": _time_ms(torch, fa.attention, (), (q, k, v, True, None, chunk), KERNEL_REPS),
+            "plain_ms": _time_ms(torch, fa.sdpa_chunked_plain, (), (q, k, v, True, None, chunk),
+                                 PLAIN_REPS),
+            "library_ms": _time_ms(torch, sdpa, (), sdpa_args, KERNEL_REPS),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    rows.append(path)
+    print("flash", json.dumps(path), flush=True)
+
+    cases = [(FLASH_SWEEP_BH, S_, d_, dt, causal, None, 512)
+             for S_ in FLASH_SWEEP_S for d_ in FLASH_SWEEP_D
+             for dt in (torch.float32, torch.bfloat16) for causal in (True, False)]
+    cases += [(16, 8_192, 128, dt, True, 4_096, 512) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(4, 256, 64, torch.float32, True, 48, 64)]  # a window inside one 64-key block
+    for BH, S_, d_, dt, causal, window, blk in cases:
+        q, k, v = (rnd(BH, S_, d_, dtype=dt) for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window, block_q=blk,
+                                  block_k=blk)
+        want = fa.sdpa_chunked_plain(q[:, :, None], k[:, :, None], v[:, :, None], causal,
+                                     window, min(blk, S_))[:, :, 0]
+        tol = _flash_tol(dt, S_, torch)
+        ok, err = _close(torch, got, want, tol)
+        row = {"case": "op", "BH": BH, "S": S_, "d": d_, "dtype": str(dt)[6:],
+               "causal": causal, "window": window, "tol": tol, "max_abs_err": err}
+        if not ok:
+            raise AssertionError(f"flash_attention kernel != plain: {row}")
+        rows.append(row)
+        print("flash", json.dumps(row), flush=True)
+    print(f"flash_attention kernel == plain within the stated tolerances at all {len(rows)} "
+          f"shapes; largest f32 error {max(r['max_abs_err'] for r in rows if r['dtype'] == 'float32')}, "
+          f"bf16 {max(r['max_abs_err'] for r in rows if r['dtype'] == 'bfloat16')}", flush=True)
+    return rows
+
+
+def _ssd_inputs(torch, gen, dev, Bsz, S, nh, p, N, dtype=None):
+    """The reference test's inputs: x, B, C normal, dt = softplus(normal),
+    A = -|normal|."""
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = rnd(Bsz, S, nh, p)
+    return (x if dtype is None else x.to(dtype), F.softplus(rnd(Bsz, S, nh)),
+            -rnd(nh).abs(), rnd(Bsz, S, N), rnd(Bsz, S, N))
+
+
+def _ssd_bound(x, B, Q):
+    """(least ms, what bounds it) for one K8 launch: 2Q²N + 2Q²p + 4QNp
+    flops a chunk per (batch row, head) at the float32 peak, against
+    its inputs and outputs at the kernel's own layout, each moved once
+    (x and y, dt, A, B and C shared by the heads, the final state)."""
+    Bsz, S, nh, p = x.shape
+    N = B.shape[-1]
+    flops = (2 * Q * Q * N + 2 * Q * Q * p + 4 * Q * N * p) * (S // Q) * Bsz * nh
+    nbytes = 4 * (2 * x.numel() + Bsz * S * nh + nh + 2 * B.numel() + Bsz * nh * N * p)
+    ops_s, bytes_s = flops / H100_FP32_PER_S, nbytes / H100_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def ssd_vs_plain(torch, dev):
+    """Phase 21: K8 against its plain version on the card, y and final
+    state within 1e-4: the path's own call (4 x 48 heads sharing B and C,
+    S = 4,096, p = 64, N = 128, Q = 256, f32), then the (BH, S, *) op at
+    smaller shapes (one with Q = S, one chunk), and a bf16 x at the
+    reference test's bf16 tolerance; the kernel and the plain version
+    timed at the path's shape (no single PyTorch call computes this)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    rows = []
+    Bsz, S, nh, p, N, Q = SSD_PATH
+    x, dt, A, Bm, Cm = _ssd_inputs(torch, gen, dev, Bsz, S, nh, p, N)
+    y, st = ss.scan(x, dt, A, Bm, Cm, Q)
+    yp, stp = ss.ssd_chunked_plain(x, dt, A, Bm, Cm, Q)
+    (oky, erry), (oks, errs) = _close(torch, y, yp, SSD_TOL), _close(torch, st, stp, SSD_TOL)
+    if not (oky and oks):
+        raise AssertionError(f"ssd_scan kernel != plain at the path's shape: y {erry} "
+                             f"state {errs}")
+    try:
+        ss.scan(x, dt, A, Bm, Cm, Q, init_state=st)
+    except ValueError:
+        pass  # the kernel starts from a zero state: no fallback to the plain version
+    else:
+        raise AssertionError("ssd_scan on the card took an init_state")
+    bound_ms, bound_by = _ssd_bound(x, Bm, Q)
+    path = {"case": "path", "B": Bsz, "S": S, "heads": nh, "p": p, "N": N, "Q": Q,
+            "dtype": "float32", "tol": SSD_TOL, "max_abs_err": max(erry, errs),
+            "ms": _time_ms(torch, ss.scan, (), (x, dt, A, Bm, Cm, Q), KERNEL_REPS),
+            "plain_ms": _time_ms(torch, ss.ssd_chunked_plain, (), (x, dt, A, Bm, Cm, Q),
+                                 PLAIN_REPS),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    rows.append(path)
+    print("ssd", json.dumps(path), flush=True)
+    cases = [(c, torch.float32, SSD_TOL) for c in SSD_SMALL]
+    cases.append((SSD_SMALL[2], torch.bfloat16, 1e-1))  # tests/test_kernels.py:116's bf16
+    for (BH, S_, p_, N_, Q_), xdt, tol in cases:
+        x, dt, A, Bm, Cm = _ssd_inputs(torch, gen, dev, BH, S_, 1, p_, N_, xdt)
+        x, dt, A = x[:, :, 0], dt[:, :, 0], A.expand(BH).contiguous()
+        y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q_)
+        yp, stp = ss.ssd_chunked_plain(x[:, :, None], dt[:, :, None], A[:, None], Bm, Cm,
+                                       min(Q_, S_))
+        (oky, erry), (oks, errs) = (_close(torch, y, yp[:, :, 0], tol),
+                                    _close(torch, st, stp[:, 0], tol))
+        row = {"case": "op", "BH": BH, "S": S_, "p": p_, "N": N_, "Q": Q_,
+               "dtype": str(xdt)[6:], "tol": tol, "max_abs_err": max(erry, errs)}
+        if not (oky and oks):
+            raise AssertionError(f"ssd_scan kernel != plain: {row}")
+        rows.append(row)
+        print("ssd", json.dumps(row), flush=True)
+    print(f"ssd_scan kernel == plain (y and final state) within the stated tolerances at all "
+          f"{len(rows)} shapes", flush=True)
+    return rows
+
+
+def _serve_path(torch, label, argv, kernel, want):
+    """Drive `launch.serve` with `argv`, launch counters set to 0 just
+    before and read just after; `kernel` must launch `want` times.
+    Prints the serving figures and returns (run, launches)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    out = serve.run(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    if launches.get(kernel, 0) != want:
+        raise AssertionError(f"{label}: {kernel} launched {launches.get(kernel, 0)} times, "
+                             f"expected {want}: {launches}")
+    args = serve.parse_args(argv)
+    logits = torch.stack(out.logits)
+    if not (out.gen.shape == (args.batch, args.gen) and (out.gen >= 0).all()
+            and (out.gen < out.cfg.padded_vocab).all() and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{label}: no finite result of the expected shape")
+    print(f"{label}: " + json.dumps({
+        "arch": out.cfg.arch_id, "batch": args.batch, "prompt_len": args.prompt_len,
+        "gen": args.gen, "prefill_ms": out.prefill_ms, "decode_ms": out.decode_ms,
+        "decode_ms_per_step": out.decode_ms / (args.gen - 1), "tok_per_s": out.tok_per_s,
+        "prefill_tok_per_s": args.batch * args.prompt_len / (out.prefill_ms / 1e3),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(), "wall_s": wall_s,
+        "launches": launches, "ids0": out.gen[0][:8].tolist()}), flush=True)
+    return out, launches
+
+
+def _device_summary(torch, prof, wall_ms, kernel):
+    """Device busy time, idle share, launches and `kernel`'s share from a
+    profile whose window took `wall_ms` on the host clock."""
+    from torch.autograd import DeviceType
+
+    device = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                     for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in device)
+    k_ms = sum(ms for name, ms, _ in device if kernel in name)
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy if device else "not measured",
+        "device_idle_share": 1 - busy / wall_ms if device else "not measured",
+        "device_events": sum(c for _, _, c in device),  # kernels and copies
+        f"{kernel}_device_ms": k_ms if device else "not measured",
+        f"{kernel}_launches": sum(c for name, _, c in device if kernel in name),
+        f"{kernel}_share_of_busy": k_ms / busy if busy else None,
+        "top_device": [{"name": name[:80], "ms": ms, "count": c}
+                       for name, ms, c in device[:6]]}
+
+
+def _serving_profile(torch, label, argv, kernel, steps=4):
+    """`argv`'s deployment once more, on the CLI's own weights and prompts,
+    under torch.profiler: the prefill, then `steps` decode steps.  Prints
+    each window's device busy time, idle share and launches and
+    `kernel`'s device time; returns `kernel`'s ms in the prefill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving.kvcache import pad_cache_to
+
+    cfg, model, tokens = serve.deployment(serve.parse_args(argv))
+    tokens = tokens.to(next(model.parameters()).device)
+    S = tokens.shape[1]
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.no_grad():
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            logits, cache = M.prefill(model, cfg, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prefill = _device_summary(torch, prof, wall_ms, kernel)
+        cache = pad_cache_to(cache, S + steps)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, cache = M.decode_step(model, cfg, cache, tok, S + i)
+                tok = logits.argmax(dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        decode = _device_summary(torch, prof, wall_ms, kernel)
+    print(f"{label} prefill profile: " + json.dumps(prefill), flush=True)
+    print(f"{label} decode profile ({steps} steps): " + json.dumps(decode), flush=True)
+    return prefill[f"{kernel}_device_ms"]
+
+
+def serve_long(torch):
+    """Phase 22: `launch.serve` on qwen2.5-3b at full width and depth with
+    a 16,384-token prompt: the chunked attention branch, one K7 launch a
+    layer; then that prefill and four decode steps profiled."""
+    out, launches = _serve_path(torch, "serve long prompt", SERVE_LONG_ARGV,
+                                "flash_attention", 36)
+    k7_ms = _serving_profile(torch, "serve long prompt", SERVE_LONG_ARGV, "flash_attention")
+    return out, launches, k7_ms
+
+
+def serve_default(torch):
+    """Phase 23: `launch.serve` at the CLI's defaults (qwen2.5-3b, batch
+    4, prompt 32, gen 16): the materialised-attention branch, no K7."""
+    return _serve_path(torch, "serve defaults", SERVE_DEFAULT_ARGV, "flash_attention", 0)
+
+
+def serve_ssm(torch):
+    """Phase 24: `launch.serve` on mamba2-780m at full width and depth,
+    batch 4 x 4,096 tokens: one K8 launch a layer; then that prefill and
+    four decode steps profiled."""
+    out, launches = _serve_path(torch, "serve mamba2", SERVE_SSM_ARGV, "ssd_scan", 48)
+    k8_ms = _serving_profile(torch, "serve mamba2", SERVE_SSM_ARGV, "ssd_scan")
+    return out, launches, k8_ms
+
+
+def serve_cuda_vs_cpu(torch):
+    """Phase 25: one set of smoke-size float32 weights (the port's init)
+    served on the card and on the host: prefill logits and every decode
+    step's logits within 1e-4, greedy ids equal.  The dense config's
+    attn_full_max is lowered to 64 so its 128-token prefill takes the
+    chunked branch (K7); the SSM prompt of 133 tokens pads to its chunk
+    (K8)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    rng = np.random.default_rng(25)
+    for arch, S, kernel, extra in (("qwen2.5-3b", 128, "flash_attention", {"attn_full_max": 64}),
+                                   ("mamba2-780m", 133, "ssd_scan", {})):
+        cfg = dataclasses.replace(smoke_config(get_config(arch)), dtype="float32", **extra)
+        host = M.init_params(cfg, "cpu", seed=0)
+        card = copy.deepcopy(host).to("cuda")
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, S)).astype(np.int32))
+        build.launches.clear()
+        got = serve.serve(cfg, card, tokens, 8)
+        launches = dict(build.launches)
+        want = serve.serve(cfg, host, tokens, 8)
+        if launches.get(kernel, 0) != cfg.num_layers:
+            raise AssertionError(f"{arch}: {kernel} launched {launches}, expected one a layer")
+        errs = []
+        for i, (g, w) in enumerate(zip(got.logits, want.logits)):
+            ok, err = _close(torch, g.cpu(), w, PARITY_TOL)
+            errs.append(err)
+            if not ok:
+                raise AssertionError(f"{arch}: cuda and cpu logits differ at step {i}: {err}")
+        if not np.array_equal(got.gen, want.gen):
+            raise AssertionError(f"{arch}: cuda and cpu greedy ids differ: {got.gen} vs "
+                                 f"{want.gen}")
+        print(f"cuda vs cpu serving ({arch} smoke, float32, prompt {S}, 8 tokens): logits "
+              f"within {PARITY_TOL} at every step (largest error {max(errs)}), greedy ids "
+              f"equal, {kernel} launches {launches[kernel]}", flush=True)
+
+
 def main():
     import torch
 
@@ -1197,6 +1589,12 @@ def main():
     phase(17, sharded_breakdown, torch)
     phase(18, sharded_workload_path, torch)
     phase(19, sharded_cuda_vs_cpu, torch)
+    flash_rows = phase(20, flash_vs_plain, torch, dev)
+    ssd_rows = phase(21, ssd_vs_plain, torch, dev)
+    _, long_launches, k7_prefill_ms = phase(22, serve_long, torch)
+    phase(23, serve_default, torch)
+    _, ssm_launches, k8_prefill_ms = phase(24, serve_ssm, torch)
+    phase(25, serve_cuda_vs_cpu, torch)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["load"] == 0.0
@@ -1213,6 +1611,9 @@ def main():
     dref = next(r for r in dedup_rows if r["lanes"] == 65_536 and "ms" in r)
     # the default node table's lanes into the default 64-row filter
     bref = next(r for r in bloom_rows if r["rows"] == 64 and r["lanes"] == 16_384)
+    # the serving paths' own calls: qwen2.5-3b's 16,384-token prefill and
+    # mamba2-780m's 4 x 4,096-token prefill
+    fref, sref8 = flash_rows[0], ssd_rows[0]
     kernels = [{
         "name": "fused_upsert", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_upsert.cu",
@@ -1281,6 +1682,29 @@ def main():
         "ms": bref["build_ms"], "plain_ms": bref["build_plain_ms"],
         "bound_ms": bref["build_bound_ms"], "bound_by": "bytes", "library_ms": None,
         "shape": {k: bref[k] for k in ("rows", "lanes")},
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:96",
+        "path": "launch.serve --arch qwen2.5-3b --prompt-len 16384 (phase 22)",
+        "launches": long_launches["flash_attention"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "ms": fref["ms"], "plain_ms": fref["plain_ms"], "bound_ms": fref["bound_ms"],
+        "bound_by": fref["bound_by"], "library_ms": fref["library_ms"],
+        "library": "scaled_dot_product_attention (the yardstick only)",
+        "prefill_device_ms": k7_prefill_ms,
+        "shape": {k: fref[k] for k in ("B", "S", "heads", "kv_heads", "d", "dtype")},
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:82",
+        "path": "launch.serve --arch mamba2-780m --prompt-len 4096 (phase 24)",
+        "launches": ssm_launches["ssd_scan"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
+        "ms": sref8["ms"], "plain_ms": sref8["plain_ms"], "bound_ms": sref8["bound_ms"],
+        "bound_by": sref8["bound_by"], "library_ms": None,
+        "prefill_device_ms": k8_prefill_ms,
+        "shape": {k: sref8[k] for k in ("B", "S", "heads", "p", "N", "Q")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

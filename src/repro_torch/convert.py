@@ -15,19 +15,30 @@ reference's arrays), so the port never imports the reference:
   * `controller_from_numpy`: the two RLS states (theta, P, n) of a
     `PerfMon.state()` dict, into a port `BufferController`;
   * `bloom_bitmap_from_numpy` / `bloom_bitmap_to_numpy`: a Bloom filter,
-    (W, 1024) uint32 on the numpy side, int32 with the same bits here.
+    (W, 1024) uint32 on the numpy side, int32 with the same bits here;
+  * `lm_params_from_numpy`: the reference's LM parameter tree (nested
+    dicts, per-layer leaves stacked on a leading axis) into the port's
+    model of the same config;
+  * `lm_cache_from_numpy`: the reference's decode cache (prefill's or
+    `alloc_cache`'s) into the port's, so the port's decode step can
+    continue the reference's prefill.
+Float leaves may be bfloat16 (`ml_dtypes` arrays, which numpy cannot
+name): they go through float32, exactly, and are cast on the torch side.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.compress.dictionary import PatternDictionary
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buffer import rls_from_numpy
 from repro_torch.graphstore.store import GraphStore
+from repro_torch.models import model as lm
+from repro_torch.models.params import torch_dtype
 from repro_torch.query.sketch import GraphSketch
 from repro_torch.query.snapshot import GraphSnapshot
 
@@ -114,3 +125,58 @@ def controller_from_numpy(controller, perfmon_state: Mapping) -> None:
     pm = controller.perfmon
     pm.beta_model = rls_from_numpy(perfmon_state["beta_model"], pm.device)
     pm.mu_model = rls_from_numpy(perfmon_state["mu_model"], pm.device)
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            yield from _flatten(val, name + ".")
+        else:
+            yield name, val
+
+
+def _float_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """numpy (any float kind, bfloat16 included) -> torch `dtype` through
+    float32; the float32 step is exact for bfloat16 and float32 leaves."""
+    return torch.from_numpy(np.asarray(a).astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                         device: Union[str, torch.device] = "cuda",
+                         dtype: Optional[Union[str, torch.dtype]] = None):
+    """The port's model of `cfg` on `device` in `dtype` (default
+    cfg.dtype) holding the reference's parameters `tree` (its
+    `init_params(param_specs(cfg), ...)` as numpy).  Raises if a leaf
+    has no parameter, a parameter no leaf, or a shape differs."""
+    dt = torch_dtype(dtype or cfg.dtype)
+    model = lm.init_params(cfg, device, dtype=dt)
+    params = dict(model.named_parameters())
+    filled = set()
+    for name, a in _flatten(tree):
+        a = np.asarray(a)
+        if name.startswith("layers."):
+            leaves = [(f"layers.{i}.{name[len('layers.'):]}", a[i]) for i in range(a.shape[0])]
+        else:
+            leaves = [(name, a)]
+        for pname, arr in leaves:
+            if pname not in params:
+                raise KeyError(f"the port's {cfg.arch_id} model has no parameter {pname}")
+            p = params[pname]
+            if tuple(p.shape) != arr.shape:
+                raise ValueError(f"{pname}: shape {arr.shape} != the port's {tuple(p.shape)}")
+            p.data.copy_(_float_tensor(arr, dt, p.device))
+            filled.add(pname)
+    missing = sorted(set(params) - filled)
+    if missing:
+        raise KeyError(f"no reference leaf for {missing}")
+    return model
+
+
+def lm_cache_from_numpy(cache: Mapping[str, np.ndarray], cfg: ModelConfig,
+                        device: Union[str, torch.device] = "cuda") -> Dict[str, torch.Tensor]:
+    """The port's decode cache from the reference's, leaf by leaf, each in
+    the dtype the port's `cache_specs` gives it."""
+    specs = lm.cache_specs(cfg, 1, 1)
+    return {name: _float_tensor(a, torch_dtype(specs[name][1]), device)
+            for name, a in cache.items()}

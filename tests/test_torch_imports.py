@@ -91,6 +91,18 @@ def test_workload_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatc
     assert code == 0 and rep.total_records > 0 and rep.shards == 2
 
 
+def test_serve_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mamba2-780m", "--smoke", "--gen", "2"])
+    gen = serve.main(["--smoke", "--gen", "2", "--batch", "1", "--device", "cpu"])
+    assert gen.shape == (1, 2)
+
+
 @pytest.mark.parametrize("entry", ["builder", "sink", "transform", "controller",
                                    "sketch_stage", "sketch", "scenario_source",
                                    "dictionary_stage", "run_scenario", "sharded_pipeline",
