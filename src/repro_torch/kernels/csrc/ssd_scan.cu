@@ -45,10 +45,11 @@
 // state, so no two threads write one word.  About 82 KB of dynamic shared
 // memory a block at the serving path's shape: two blocks an SM.
 //
-// What bounds it on this card: operations.  2Q^2 N + 2Q^2 p + 4QNp flops
-// a chunk on float32 FMA units (67 TFLOP/s), 1.0e11 a launch at the path's
-// shape (4 x 48 heads, 4,096 positions, N = 128, p = 64, Q = 256), against
-// about 0.3 GB moved.  With one CTA per (head, batch row) the launch has
+// What bounds it on this card: operations.  (N + p) Q (Q + 1) flops a
+// chunk for the intra product's causal pairs (j <= i) and 4QNp for the
+// state's two products, on float32 FMA units (67 TFLOP/s): 6.5e10 a launch
+// at the path's shape (4 x 48 heads, 4,096 positions, N = 128, p = 64,
+// Q = 256), against about 0.3 GB moved.  With one CTA per (head, batch row) the launch has
 // 192 CTAs, under two per SM; splitting the state's columns over CTAs, or
 // the chunks over a parallel pass and a short sequential one, is later work.
 
@@ -56,8 +57,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace {
 
+constexpr int kMaxDevices = 64;  // devices whose shared-memory opt-in is tracked
 constexpr int kThreads = 256;
 constexpr int kRows = 32;    // query rows and keys per block of the intra product
 constexpr int kMaxY = 16;    // y entries per thread: kRows * p / kThreads, p <= 128
@@ -235,10 +239,23 @@ cudaError_t launch(const void* x, const void* dt, const void* A, const void* Bm,
   const size_t smem = sizeof(double) * Q +
                       sizeof(float) * (static_cast<size_t>(N) * P + 2 * kRows * (N + 1) +
                                        kRows * P + kRows * (kRows + 1) + 2 * Q);
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  // The opt-in above 48 KB of dynamic shared memory is an attribute of
+  // the kernel on each device: set it to the device's most on the first
+  // launch there only.  A larger block's launch then fails with its error.
+  static std::atomic<bool> smem_opted_in[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_opted_in[device].load(std::memory_order_acquire)) {
+    int most = 0;
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most);
+    if (err != cudaSuccess) return err;
+    smem_opted_in[device].store(true, std::memory_order_release);
+  }
   ssd_scan_kernel<T><<<dim3(heads, batch), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const float*>(Bm), static_cast<const float*>(Cm), static_cast<T*>(y),

@@ -27,8 +27,6 @@ from repro_torch.kernels import build
 
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128  # y accumulators per thread in the kernel: 32 rows x p / 256
-SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on the H100
-ROWS = 32  # the kernel's row and key block
 
 
 def ssd_chunked_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bs: torch.Tensor,
@@ -102,13 +100,6 @@ def _check(xh, dt, A, Bs, Cs, chunk):
         raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
 
 
-def smem_bytes(N: int, p: int, chunk: int) -> int:
-    """Dynamic shared memory of one block: seg (float64), the state, C and
-    B row blocks, an x block, the (C B^T) o L block, and dt and w of a
-    chunk."""
-    return 8 * chunk + 4 * (N * p + 2 * ROWS * (N + 1) + ROWS * p + ROWS * (ROWS + 1) + 2 * chunk)
-
-
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
              + [ctypes.c_int, ctypes.c_void_p])
 
@@ -118,9 +109,6 @@ def _launch(xh, dt, A, Bs, Cs, chunk):
     N = Bs.shape[-1]
     if p > MAX_HEAD_DIM:
         raise ValueError(f"the ssd_scan kernel takes head widths up to {MAX_HEAD_DIM}, not {p}")
-    if smem_bytes(N, p, chunk) > SMEM_LIMIT:
-        raise ValueError(f"state {N}x{p} with chunk {chunk} needs more shared memory "
-                         "than a block has")
     if xh.stride(3) != 1 or Bs.stride(2) != 1 or Cs.stride(2) != 1:
         raise ValueError("x, B and C must be contiguous along their last dimension")
     y = torch.empty((B_, S, nh, p), dtype=xh.dtype, device=xh.device)

@@ -9,14 +9,13 @@ plus `--device {cuda,cpu}` (default the card).  The weights are random,
 drawn from seed 0 at the config's published widths (or the smoke
 widths with `--smoke`), in the config's dtype; nothing is downloaded.
 `main()` returns the generated ids, (batch, gen) int32; `run()` returns
-them with the timings and every step's logits; `serve()` is the loop
+them with the timings and every step's logits; `serve()` times the loop
 over a given model and prompt batch.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -27,8 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.device import resolve
 from repro_torch.models import model as M
-from repro_torch.serving.decode import sync
-from repro_torch.serving.kvcache import pad_cache_to
+from repro_torch.serving.decode import generate
 
 
 @dataclasses.dataclass
@@ -46,33 +44,14 @@ class ServeRun:
     logits: List[torch.Tensor]
 
 
-@torch.no_grad()
 def serve(cfg: ModelConfig, model, tokens: torch.Tensor, gen: int) -> ServeRun:
-    """Prefill `tokens` (B, S) on the model's device, grow the cache to
-    S + gen positions, then decode gen - 1 greedy steps (the serve step's
-    argmax, keeping each step's logits)."""
-    device = next(model.parameters()).device
-    tokens = tokens.to(device)
-    B, prompt_len = tokens.shape
-    t0 = time.perf_counter()
-    logits, cache = M.prefill(model, cfg, {"tokens": tokens})
-    cache = pad_cache_to(cache, prompt_len + gen)
-    sync(device)
-    t_prefill = time.perf_counter() - t0
-
-    seen = [logits]
-    next_tok = logits.argmax(dim=-1).to(torch.int32)
-    out = [next_tok.cpu().numpy()]
-    t0 = time.perf_counter()
-    for i in range(gen - 1):
-        step_logits, cache = M.decode_step(model, cfg, cache, next_tok, prompt_len + i)
-        seen.append(step_logits)
-        next_tok = step_logits.argmax(dim=-1).to(torch.int32)
-        out.append(next_tok.cpu().numpy())
-    sync(device)
-    t_decode = time.perf_counter() - t0
-    tps = B * (gen - 1) / max(t_decode, 1e-9)
-    return ServeRun(cfg, np.stack(out, axis=1), t_prefill * 1e3, t_decode * 1e3, tps, seen)
+    """Prefill `tokens` (B, S) on the model's device, then decode gen - 1
+    greedy steps through `serving.decode.generate`, keeping each step's
+    logits."""
+    seen: List[torch.Tensor] = []
+    ids, t_prefill, t_decode = generate(cfg, model, tokens, gen, keep=seen)
+    tps = tokens.shape[0] * (gen - 1) / max(t_decode, 1e-9)
+    return ServeRun(cfg, ids, t_prefill * 1e3, t_decode * 1e3, tps, seen)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
