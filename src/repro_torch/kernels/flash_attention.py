@@ -7,13 +7,19 @@ j reading kv head j // (n // m), as `models.layers._sdpa_chunked` does:
   * on CUDA tensors it launches the hand-written kernel
     `csrc/flash_attention.cu`, which reads q, k and v in place through
     their strides (no permute, no copy of k/v per query head) and writes
-    a new contiguous (B, S, n, h) output;
+    a new contiguous (B, S, n, h) output.  bfloat16 runs on the tensor
+    cores (wgmma, K and V loaded by TMA), which needs q, k and v 16-byte
+    aligned with strides of whole 16-byte rows; float32 runs on the FMA
+    units.  The choice is the dtype's, never a fallback;
   * on CPU tensors it runs the plain version `sdpa_chunked_plain`, the
     reference's online-softmax recurrence over KV chunks.
-Scores are float32 from q and k cast to float32, masked scores are set
-to -1e30, and the output, divided by its softmax sum, is in q's dtype
-(float32 or bfloat16).  `ops.flash_attention` keeps the reference's
-(BH, S, d) signature over the same wrapper.
+Scores are float32 from q and k, masked scores are set to -1e30, and the
+output, divided by its softmax sum, is in q's dtype (float32 or
+bfloat16).  In bfloat16 the kernel multiplies v by the softmax weights
+as two bfloat16 parts, hi and the rounding of p - hi, which keeps about
+16 bits of each weight (one part, as FlashAttention uses, misses the
+card's check near 0); the sum stays float32.  `ops.flash_attention`
+keeps the reference's (BH, S, d) signature over the same wrapper.
 """
 from __future__ import annotations
 
@@ -90,6 +96,16 @@ def _check(q, k, v, window, chunk):
         raise ValueError("window must be at least 1")
 
 
+def _check_tma(q, k, v):
+    """The bf16 kernel loads q, k and v by TMA: each base 16-byte aligned,
+    each stride of a dimension longer than 1 a multiple of 16 bytes."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(t.stride(i) * t.element_size() % 16
+                                    for i in range(3) if t.shape[i] > 1):
+            raise ValueError(f"{name} must be 16-byte aligned with strides of whole 16-byte "
+                             f"rows for the bf16 kernel's TMA loads (strides {t.stride()})")
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
@@ -101,6 +117,8 @@ def _launch(q, k, v, causal, window):
         raise ValueError(f"the flash_attention kernel takes head widths {HEAD_DIMS}, not {h}")
     if not all(t.stride(3) == 1 for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous along the head width")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
     o = torch.empty((B, S, n, h), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
