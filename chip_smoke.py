@@ -87,8 +87,10 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      its share of the bound;
  21. holds the SSD scan kernel (K8) against its plain version on the
      card, y and final state within 1e-4: the serving path's own call
-     (mamba2-780m, 4 x 48 heads, 4,096 positions, chunk 256) and smaller
-     shapes (one a single chunk), and times both;
+     (mamba2-780m, 4 x 48 heads, 4,096 positions, chunk 256), 8 heads
+     sharing B and C over 4 chunks at the path's widths (float32 and
+     bf16 x), and smaller shapes (one a single chunk); times both, and
+     gives the kernel's TFLOP/s and its share of the bound;
  22. drives the serving CLI, `launch.serve --arch qwen2.5-3b --batch 1
      --prompt-len 16384 --gen 16`, at full width and depth (random
      weights), counters set to 0 just before and read just after: 36
@@ -98,8 +100,9 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
  23. drives `launch.serve` at its defaults (batch 4, prompt 32): the
      materialised-attention branch, no flash_attention launch;
  24. drives `launch.serve --arch mamba2-780m --batch 4 --prompt-len 4096
-     --gen 16` the same way: 48 ssd_scan launches, and profiles that
-     prefill and four decode steps;
+     --gen 16` the same way: 48 ssd_scan calls, and profiles that
+     prefill and four decode steps, with the count of K8's device
+     kernels (three a call);
  25. serves one set of smoke-size float32 weights on the card and on the
      host, both archs (the dense prefill on the chunked branch): logits
      within 1e-4 at every step and equal greedy ids.
@@ -165,6 +168,8 @@ FLASH_SMALL_D = (16, 32)  # head widths of no served model, held in bf16 at two 
 SSD_PATH = (4, 4_096, 48, 64, 128, 256)  # mamba2-780m's prefill in phase 24: B, S, nh, p, N, Q
 SSD_SMALL = ((2, 64, 16, 8, 16), (2, 128, 32, 16, 32), (2, 256, 64, 64, 128),
              (2, 128, 64, 128, 128), (8, 144, 16, 16, 16))  # (BH, S, p, N, Q); Q = S is one chunk
+# the path's p, N and Q with 8 heads sharing B and C over 4 chunks: B, S, nh, p, N, Q
+SSD_SHARED = (2, 1_024, 8, 64, 128, 256)
 SSD_TOL = 1e-4  # the reference test's float32 tolerance (tests/test_kernels.py:116)
 # K7 in bf16: the plain version weighs v in float32, the kernel by two
 # bf16 parts of each weight (about 2^-17 relative); they differ by one
@@ -1343,28 +1348,38 @@ def _ssd_inputs(torch, gen, dev, Bsz, S, nh, p, N, dtype=None):
             -rnd(nh).abs(), rnd(Bsz, S, N), rnd(Bsz, S, N))
 
 
-def _ssd_bound(x, B, Q):
-    """(least ms, what bounds it) for one K8 launch: (N + p)·Q(Q + 1)
-    flops a chunk per (batch row, head) for the intra product's causal
-    pairs (j <= i, as K7 counts only unmasked pairs) and 4QNp for the
-    state's two products, at the float32 peak, against its inputs and
-    outputs at the kernel's own layout, each moved once (x and y, dt, A,
-    B and C shared by the heads, the final state)."""
+def _ssd_flops(x, B, Q):
+    """K8's own work: C·Bᵀ once per (batch row, chunk), since every head
+    shares B and C, at N·Q(Q + 1) flops over the causal pairs (j <= i, as
+    K7 counts only unmasked pairs); per head the intra product's
+    p·Q(Q + 1) over the same pairs and 4QNp for the state's two products."""
     Bsz, S, nh, p = x.shape
     N = B.shape[-1]
-    flops = ((N + p) * Q * (Q + 1) + 4 * Q * N * p) * (S // Q) * Bsz * nh
+    return (N * Q * (Q + 1) + nh * (p * Q * (Q + 1) + 4 * Q * N * p)) * (S // Q) * Bsz
+
+
+def _ssd_bound(x, B, Q):
+    """(least ms, what bounds it) for one K8 call: `_ssd_flops` at the
+    float32 peak (every product of the kernel is float32 FMA), against its
+    inputs and outputs at the kernel's own layout, each moved once (x and
+    y, dt, A, B and C shared by the heads, the final state)."""
+    Bsz, S, nh, p = x.shape
+    N = B.shape[-1]
     nbytes = 4 * (2 * x.numel() + Bsz * S * nh + nh + 2 * B.numel() + Bsz * nh * N * p)
-    ops_s, bytes_s = flops / H100_FP32_PER_S, nbytes / H100_BYTES_PER_S
+    ops_s, bytes_s = _ssd_flops(x, B, Q) / H100_FP32_PER_S, nbytes / H100_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
 def ssd_vs_plain(torch, dev):
     """Phase 21: K8 against its plain version on the card, y and final
     state within 1e-4: the path's own call (4 x 48 heads sharing B and C,
-    S = 4,096, p = 64, N = 128, Q = 256, f32), then the (BH, S, *) op at
-    smaller shapes (one with Q = S, one chunk), and a bf16 x at the
-    reference test's bf16 tolerance; the kernel and the plain version
-    timed at the path's shape (no single PyTorch call computes this)."""
+    S = 4,096, p = 64, N = 128, Q = 256, f32), 8 heads sharing B and C
+    over 4 chunks at the path's p, N and Q in f32 and with a bf16 x, then
+    the (BH, S, *) op at smaller shapes (one with Q = S, one chunk), and
+    a bf16 x at the reference test's bf16 tolerance; the kernel and the
+    plain version timed at the path's shape (no single PyTorch call
+    computes this), with the kernel's TFLOP/s (`_ssd_flops`) and its
+    share of the bound."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
 
@@ -1392,8 +1407,22 @@ def ssd_vs_plain(torch, dev):
             "plain_ms": _time_ms(torch, ss.ssd_chunked_plain, (), (x, dt, A, Bm, Cm, Q),
                                  PLAIN_REPS),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    path["tflops"] = _ssd_flops(x, Bm, Q) / (path["ms"] * 1e-3) / 1e12
+    path["bound_share"] = bound_ms / path["ms"]
     rows.append(path)
     print("ssd", json.dumps(path), flush=True)
+    Bsz, S, nh, p, N, Q = SSD_SHARED
+    for xdt, tol in ((torch.float32, SSD_TOL), (torch.bfloat16, 1e-1)):
+        x, dt, A, Bm, Cm = _ssd_inputs(torch, gen, dev, Bsz, S, nh, p, N, xdt)
+        y, st = ss.scan(x, dt, A, Bm, Cm, Q)
+        yp, stp = ss.ssd_chunked_plain(x, dt, A, Bm, Cm, Q)
+        (oky, erry), (oks, errs) = _close(torch, y, yp, tol), _close(torch, st, stp, tol)
+        row = {"case": "shared", "B": Bsz, "S": S, "heads": nh, "p": p, "N": N, "Q": Q,
+               "dtype": str(xdt)[6:], "tol": tol, "max_abs_err": max(erry, errs)}
+        if not (oky and oks):
+            raise AssertionError(f"ssd_scan kernel != plain: {row}")
+        rows.append(row)
+        print("ssd", json.dumps(row), flush=True)
     cases = [(c, torch.float32, SSD_TOL) for c in SSD_SMALL]
     cases.append((SSD_SMALL[2], torch.bfloat16, 1e-1))  # tests/test_kernels.py:116's bf16
     for (BH, S_, p_, N_, Q_), xdt, tol in cases:
@@ -1472,7 +1501,7 @@ def _serving_profile(torch, label, argv, kernel, steps=4):
     """`argv`'s deployment once more, on the CLI's own weights and prompts,
     under torch.profiler: the prefill, then `steps` decode steps.  Prints
     each window's device busy time, idle share and launches and
-    `kernel`'s device time; returns `kernel`'s ms in the prefill."""
+    `kernel`'s device time; returns the prefill's summary."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
@@ -1502,7 +1531,7 @@ def _serving_profile(torch, label, argv, kernel, steps=4):
         decode = _device_summary(torch, prof, wall_ms, kernel)
     print(f"{label} prefill profile: " + json.dumps(prefill), flush=True)
     print(f"{label} decode profile ({steps} steps): " + json.dumps(decode), flush=True)
-    return prefill[f"{kernel}_device_ms"]
+    return prefill
 
 
 def serve_long(torch):
@@ -1511,8 +1540,8 @@ def serve_long(torch):
     layer; then that prefill and four decode steps profiled."""
     out, launches = _serve_path(torch, "serve long prompt", SERVE_LONG_ARGV,
                                 "flash_attention", 36)
-    k7_ms = _serving_profile(torch, "serve long prompt", SERVE_LONG_ARGV, "flash_attention")
-    return out, launches, k7_ms
+    prefill = _serving_profile(torch, "serve long prompt", SERVE_LONG_ARGV, "flash_attention")
+    return out, launches, prefill["flash_attention_device_ms"]
 
 
 def serve_default(torch):
@@ -1523,11 +1552,16 @@ def serve_default(torch):
 
 def serve_ssm(torch):
     """Phase 24: `launch.serve` on mamba2-780m at full width and depth,
-    batch 4 x 4,096 tokens: one K8 launch a layer; then that prefill and
-    four decode steps profiled."""
+    batch 4 x 4,096 tokens: one K8 call a layer; then that prefill and
+    four decode steps profiled, with the profile's count of K8's device
+    kernels beside the wrapper's count of calls."""
     out, launches = _serve_path(torch, "serve mamba2", SERVE_SSM_ARGV, "ssd_scan", 48)
-    k8_ms = _serving_profile(torch, "serve mamba2", SERVE_SSM_ARGV, "ssd_scan")
-    return out, launches, k8_ms
+    prefill = _serving_profile(torch, "serve mamba2", SERVE_SSM_ARGV, "ssd_scan")
+    calls, kernels = launches["ssd_scan"], prefill["ssd_scan_launches"]
+    print(f"serve mamba2: {calls} ssd_scan wrapper calls in the served run; "
+          f"{kernels} ssd_scan device kernels in the profiled prefill, "
+          f"{kernels / calls} a call", flush=True)
+    return out, launches, prefill["ssd_scan_device_ms"]
 
 
 def serve_cuda_vs_cpu(torch):
@@ -1740,7 +1774,8 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "ms": sref8["ms"], "plain_ms": sref8["plain_ms"], "bound_ms": sref8["bound_ms"],
         "bound_by": sref8["bound_by"], "library_ms": None,
-        "prefill_device_ms": k8_prefill_ms,
+        "prefill_device_ms": k8_prefill_ms, "tflops": sref8["tflops"],
+        "bound_share": sref8["bound_share"],
         "shape": {k: sref8[k] for k in ("B", "S", "heads", "p", "N", "Q")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

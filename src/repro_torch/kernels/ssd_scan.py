@@ -5,10 +5,11 @@ Counterpart of `repro.kernels.ssd_scan` (K8).  `scan` takes the Mamba2
 block's layout: x (B, S, nh, p), dt (B, S, nh), A (nh,) or (B, nh), and
 B/C (B, S, N) shared by every head (ngroups = 1), S a multiple of the
 chunk:
-  * on CUDA tensors it launches the hand-written kernel
-    `csrc/ssd_scan.cu`, which reads every operand in place through its
-    strides (B and C once per batch row, not copied per head) and
-    starts from a zero state;
+  * on CUDA tensors it launches the hand-written kernels of
+    `csrc/ssd_scan.cu` (a chunk pass, a state pass over the chunks and
+    an output pass; one call, one count), which read every operand in
+    place through its strides (B and C per batch row, not copied per
+    head) and start from a zero state;
   * on CPU tensors it runs the plain version `ssd_chunked_plain`, the
     reference `ssd_chunked`'s chunked algebra.
 y comes back in x's dtype and the final state (B, nh, N, p) in float32.
@@ -26,7 +27,9 @@ import torch
 from repro_torch.kernels import build
 
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128  # y accumulators per thread in the kernel: 32 rows x p / 256
+MAX_HEAD_DIM = 128  # head width p the kernel takes
+MAX_STATE = 128  # state width N: C's transposed tile and a CTA's rows of S_c
+MAX_CHUNK = 256  # chunk Q: the output pass keeps a 64 x Q tile of C B^T
 
 
 def ssd_chunked_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bs: torch.Tensor,
@@ -100,21 +103,35 @@ def _check(xh, dt, A, Bs, Cs, chunk):
         raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
              + [ctypes.c_int, ctypes.c_void_p])
+
+
+def check_kernel_shape(p: int, N: int, chunk: int) -> None:
+    """Raise ValueError for a shape the kernel does not take."""
+    if p > MAX_HEAD_DIM:
+        raise ValueError(f"the ssd_scan kernel takes head widths up to {MAX_HEAD_DIM}, not {p}")
+    if N > MAX_STATE:
+        raise ValueError(f"the ssd_scan kernel takes state widths up to {MAX_STATE}, not {N}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"the ssd_scan kernel takes chunks up to {MAX_CHUNK}, not {chunk}")
 
 
 def _launch(xh, dt, A, Bs, Cs, chunk):
     B_, S, nh, p = xh.shape
     N = Bs.shape[-1]
-    if p > MAX_HEAD_DIM:
-        raise ValueError(f"the ssd_scan kernel takes head widths up to {MAX_HEAD_DIM}, not {p}")
+    check_kernel_shape(p, N, chunk)
     if xh.stride(3) != 1 or Bs.stride(2) != 1 or Cs.stride(2) != 1:
         raise ValueError("x, B and C must be contiguous along their last dimension")
     y = torch.empty((B_, S, nh, p), dtype=xh.dtype, device=xh.device)
     state = torch.empty((B_, nh, N, p), dtype=torch.float32, device=xh.device)
     if y.numel() == 0:
         return y, state.zero_()
+    nc = S // chunk
+    # the chunk pass's S_c, overwritten by the state before each chunk,
+    # and the prefix sums of dt*A, both read by the output pass
+    states = torch.empty((B_, nc, nh, N, p), dtype=torch.float32, device=xh.device)
+    segs = torch.empty((B_, nc, nh, chunk), dtype=torch.float64, device=xh.device)
     fn = build.library("ssd_scan").ssd_scan_launch
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -124,8 +141,8 @@ def _launch(xh, dt, A, Bs, Cs, chunk):
                + [Cs.stride(0), Cs.stride(1)] + [y.stride(i) for i in range(3)])
     stream = torch.cuda.current_stream(xh.device).cuda_stream
     err = fn(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bs.data_ptr(), Cs.data_ptr(),
-             y.data_ptr(), state.data_ptr(), B_, nh, S, p, N, chunk, *strides,
-             X_DTYPES[xh.dtype], stream)
+             y.data_ptr(), state.data_ptr(), states.data_ptr(), segs.data_ptr(), B_, nh, S, p,
+             N, chunk, *strides, X_DTYPES[xh.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
     build.launches["ssd_scan"] += 1
