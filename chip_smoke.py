@@ -52,12 +52,14 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      shared record stream, the uncontrolled loop with compression on
      both devices (equal stores, dictionaries and reports), and on the
      card the raw and the compressed loop (byte-identical stores);
- 14. drives the kernel-ops entry point's `sort_dedup` (K2) at 64 to 2^20
-     keys of six kinds (5 values, n/4, 2^31, all equal, sorted,
+ 14. drives the kernel-ops entry point's `sort_dedup` (K2) at 16 to 2^20
+     keys (the sizes where its design changes level, and the first past
+     each) of six kinds (5 values, n/4, 2^31, all equal, sorted,
      reversed), counters set to 0 just before and read just after, holds
      sorted, order and head bit for bit against the plain version and
      `dedup_sorted_counts` on both, and times the kernel, the plain
-     version and `torch.sort`;
+     version and `torch.sort`, with the device kernels of one call
+     (torch.profiler) beside the launches its plan makes;
  15. drives the entry point's Bloom ops (K6a probe, K6b build) at 2 to
      64 rows and 64 to 16,384 keys and `bloom_diversity` over 120 Zipf
      batches into one 64-row filter, the same way, held bit for bit
@@ -143,7 +145,11 @@ MINE_LANES = (64, 8_192, 65_536)  # a small batch, the path's edge-table cap, th
 WORKLOAD_ARGV = ["--scenario", "flash_crowd", "--dict-compress"]  # 240 ticks, 2^20/2^21
 DRYRUN_TICKS = 60
 H100_FP32_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA H100 SXM data sheet
-DEDUP_LANES = (64, 1_024, 8_192, 16_384, 65_536, 1 << 20)  # to one CTA's tile, the VMEM block, 2^20
+# K2 at the sizes where its design changes level: one thread's registers
+# (16), a warp (512), a CTA (4,096), a cluster (65,536), and the first size
+# past each (32, 1,024, 8,192, 2^17: the first device-memory pass); 64,
+# 16,384 (the old one-CTA tile) and 2^20 as before
+DEDUP_LANES = (16, 32, 64, 512, 1_024, 4_096, 8_192, 16_384, 65_536, 1 << 17, 1 << 20)
 DEDUP_KINDS = ("5", "n/4", "2^31", "equal", "sorted", "reversed")
 BLOOM_ROWS = (2, 16, 64)
 BLOOM_LANES = (64, 1_024, 16_384)  # up to the default node table's 16,384 lanes
@@ -869,14 +875,44 @@ def _dedup_bound(n):
     return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
 
 
+def _device_kernels(torch, fn, args):
+    """The device kernels one call of `fn(*args)` runs, counted by
+    torch.profiler (after one call outside the window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def _dedup_kernels_a_call(sizes):
+    """{n: device kernels of one sort_dedup call on n keys}, counted by
+    `_device_kernels` in a fresh process.  In this process, after the
+    profiled phases, a window of one call read no device event at all
+    (where a fresh process reads every kernel the plan launches); the
+    launches depend on n alone, not on the keys."""
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
+            "from repro_torch.kernels import ops; "
+            "print(json.dumps({n: cs._device_kernels(torch, ops.sort_dedup, "
+            "(torch.arange(n, device='cuda') % 1009,)) for n in map(int, sys.argv[2:])}))")
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT), *map(str, sizes)],
+                         check=True, capture_output=True, text=True).stdout
+    return {int(n): count for n, count in json.loads(out.strip().splitlines()[-1]).items()}
+
+
 def dedup_vs_plain(torch, dev):
     """Phase 14: the kernel-ops entry point's sort_dedup (K2) at every
     shape, with the launch counters set to 0 just before and read just
     after; each result held bit for bit against the plain version, and
     dedup_sorted_counts equal on both; then the kernel, the plain version
-    and torch.sort (the library yardstick) timed."""
+    and torch.sort (the library yardstick) timed, with the device kernels
+    of one call and the launches its plan makes."""
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels.edge_dedup import sort_dedup_plain
+    from repro_torch.kernels.edge_dedup import launch_plan, resident_clusters, sort_dedup_plain
 
     rng = np.random.default_rng(3)
     inputs = [(n, kind, torch.from_numpy(_dedup_keys(rng, n, kind)).to(dev))
@@ -890,6 +926,7 @@ def dedup_vs_plain(torch, dev):
     launches = dict(build.launches)
     if launches.get("sort_dedup", 0) != len(inputs):
         raise AssertionError(f"expected one sort_dedup launch per call: {launches}")
+    kernels_a_call = _dedup_kernels_a_call(DEDUP_LANES)
     rows = []
     for (n, kind, keys), (got, got_counts) in zip(inputs, outs):
         want = sort_dedup_plain(keys)
@@ -907,12 +944,15 @@ def dedup_vs_plain(torch, dev):
                        plain_ms=_time_ms(torch, sort_dedup_plain, (), (keys,), PLAIN_REPS),
                        library_ms=_time_ms(torch, lambda k: torch.sort(k), (), (keys,),
                                            KERNEL_REPS),
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       device_kernels=kernels_a_call[n],
+                       planned_launches=len(launch_plan(n, keys.device)))
         rows.append(row)
         print("dedup", json.dumps(row), flush=True)
     print("sort_dedup kernel == plain bit for bit (tolerance 0), dedup_sorted_counts equal, "
           f"at all {len(rows)} shapes; library_ms is torch.sort, whose tie order differs "
-          "(a yardstick of time only)", flush=True)
+          f"(a yardstick of time only); {resident_clusters(dev)} clusters of 16 CTAs "
+          "fit on the card at once, one CTA to an SM", flush=True)
     return rows, launches
 
 
@@ -1731,6 +1771,7 @@ def main():
         "ms": dref["ms"], "plain_ms": dref["plain_ms"], "bound_ms": dref["bound_ms"],
         "bound_by": dref["bound_by"], "library_ms": dref["library_ms"],
         "library": "torch.sort (another tie order: a yardstick of time only)",
+        "device_kernels": dref["device_kernels"],
         "shape": {k: dref[k] for k in ("lanes", "keys")},
     }, {
         "name": "bloom_probe", "route": "cuda",
