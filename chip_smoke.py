@@ -42,11 +42,17 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
  11. runs that path again, from `run_scenario`'s own builder, with
      spans on and under torch.profiler, counts the mined batches of
      each edge-table size and keeps the largest;
- 12. holds the pattern-miner kernel against its plain version on the
-     card, bit for bit, at 64, 8,192 and 65,536 edges (random batches
-     with invalid lanes, and batches built to hold star bursts, cascade
-     chains and hot edges) and on the batch phase 11 kept, and times
-     both;
+ 12. holds the pattern miner (K5) against its plain version on the
+     card, bit for bit, at 1, 2, 64, 512, 1,024, 2,048, 4,096, 8,192,
+     16,384 and 65,536 edges (both sides of each step of its cluster
+     plan: 1 CTA a vector below 2,048 edges, 8 from there),
+     on random batches with invalid lanes, batches built to hold star
+     bursts, cascade chains and hot edges, one hub owning every lane,
+     ids 0 and 2^64 - 1 as src and dst with and without an invalid
+     lane, and all lanes invalid or valid, and on the batch phase 11
+     kept; times the kernel and the plain version on the random,
+     patterned, hub and phase-11 batches, and counts the device kernels
+     of one call (torch.profiler, in a fresh process: two);
  13. compares CUDA with CPU at the workload CLI's `--dryrun` size: the
      sampled lanes and tick counts that differ (printed), then, on one
      shared record stream, the uncontrolled loop with compression on
@@ -69,7 +75,7 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      --dict-compress`, for 120 ticks at the default deployment, with the
      launch counters set to 0 just before and read just after;
  17. runs that loop again, spans on and under torch.profiler for ticks
-     40 to 79;
+     40 to 79, and prints K5's device time over those ticks;
  18. drives the workload CLI's own example, `launch.workload --scenario
      flash_crowd --shards 4 --sketch-control`, at its default deployment
      (240 ticks), the same way;
@@ -141,7 +147,14 @@ SKETCH_LANES = (1_024, 8_192)  # edge-table caps of a sketch update on the query
 ZIPF_A = 1.3
 TRAFFIC_LANES = (2_048, 65_536)  # the workload source's block, and a large one
 TRAFFIC_SEEDS = ((0, 0), (7, 12_345), (0, 2**32 - 5_000))  # (seed, ctr0), the last wraps
-MINE_LANES = (64, 8_192, 65_536)  # a small batch, the path's edge-table cap, the largest
+# K5 on either side of each step of its cluster plan (1 CTA a vector up to
+# 1,024 edges, 8 from 2,048; a CTA takes 8 lanes a thread at 65,536, the
+# largest), the smallest batches, 512 (the path's commonest mined batch)
+# and 8,192 (the path's edge-table cap)
+MINE_LANES = (1, 2, 64, 512, 1_024, 2_048, 4_096, 8_192, 16_384, 65_536)
+MINE_KINDS = ("random", "patterned", "hub", "extremes", "extremes_all_valid", "all_invalid",
+              "all_valid")
+MINE_TIMED = ("random", "patterned", "hub")
 WORKLOAD_ARGV = ["--scenario", "flash_crowd", "--dict-compress"]  # 240 ticks, 2^20/2^21
 DRYRUN_TICKS = 60
 H100_FP32_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA H100 SXM data sheet
@@ -321,7 +334,8 @@ def main_path(torch):
 def _profiled(torch, label, reg, drive, ticks=MAIN_TICKS):
     """Run `drive()` with span telemetry `reg` on and under
     torch.profiler; print the host span totals per stage, and the
-    device's busy time (kernels and copies) against the wall time."""
+    device's busy time (kernels and copies) against the wall time.
+    Returns the device events as (name, ms, count), largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,6 +362,7 @@ def _profiled(torch, label, reg, drive, ticks=MAIN_TICKS):
         "ported_kernels_device": ported if device else "not measured",
         "top_device": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in device[:10]],
     }), flush=True)
+    return device
 
 
 def tick_breakdown(torch):
@@ -703,15 +718,30 @@ def workload_breakdown(torch):
 
 
 def _mine_batch(torch, rng, n, kind):
-    """A batch for the miner: random ids with ~20% invalid lanes, or the
-    same with star bursts, cascade chains and hot edges planted."""
+    """A batch for the miner: random ids with ~20% invalid lanes; the
+    same with star bursts, cascade chains and hot edges planted
+    ("patterned"); one (src, etype) hub owning every lane, all valid
+    ("hub"); ids 0, 2^64 - 1 and others on both sides of the packing
+    limit with one invalid lane ("extremes") or none; all lanes invalid
+    or all valid."""
     pool = np.unique(rng.integers(1, 2**64 - 1, size=max(n // 2, 8), dtype=np.uint64))
     pool[: pool.size // 2] >>= np.uint64(40)  # half packed, half hashed keys
     src, dst = pool[rng.integers(0, pool.size, n)], pool[rng.integers(0, pool.size, n)]
     et = rng.integers(0, 3, n).astype(np.int32)
     count = rng.integers(1, 3, n).astype(np.int32)
     valid = rng.random(n) >= 0.2
-    if kind == "patterned":
+    if kind == "hub":
+        src[:], et[:], valid[:] = src[0], 1, True
+        dst[rng.random(n) < 0.1] = src[0]
+    elif kind.startswith("extremes"):
+        ids = np.array([0, 2**64 - 1, 1, 2**63, (1 << 27) - 1, 1 << 27], dtype=np.uint64)
+        src, dst = ids[rng.integers(0, ids.size, n)], ids[rng.integers(0, ids.size, n)]
+        valid[:] = True
+        if kind == "extremes":
+            valid[rng.integers(0, n)] = False
+    elif kind in ("all_invalid", "all_valid"):
+        valid[:] = kind == "all_valid"
+    elif kind == "patterned":
         lanes = iter(rng.permutation(n))
         for _ in range(n // 32):
             hub, e = pool[rng.integers(pool.size)], rng.integers(3)
@@ -733,13 +763,22 @@ def _mine_batch(torch, rng, n, kind):
 
 
 def mine_vs_plain(torch, dev, real_batch):
-    """Phase 12: pattern_mine kernel vs its plain version, bit-equal."""
-    from repro_torch.kernels.pattern_mine import pattern_mine, pattern_mine_ref
+    """Phase 12: the pattern miner (K5) against its plain version, bit
+    for bit, at every size and kind and on phase 11's batch; timed on
+    the MINE_TIMED kinds and phase 11's batch, with the device kernels
+    of one call at each size."""
+    from repro_torch.kernels.pattern_mine import cluster_plan, pattern_mine, pattern_mine_ref
 
     rng = np.random.default_rng(2)
     cases = [(kind, tuple(t.to(dev) for t in _mine_batch(torch, rng, n, kind)) + (4, 2))
-             for n in MINE_LANES for kind in ("random", "patterned")]
+             for n in MINE_LANES for kind in MINE_KINDS]
     cases.append(("path", real_batch))
+    kernels_a_call = _kernels_a_call(
+        "PM.pattern_mine", "tuple(t.cuda() for t in cs._mine_batch(torch, "
+        "np.random.default_rng(2), n, 'random')) + (4, 2)",
+        sorted(set(MINE_LANES) | {real_batch[0].shape[0]}))
+    if any(k != 2 for k in kernels_a_call.values()):
+        raise AssertionError(f"pattern_mine: expected 2 device kernels a call: {kernels_a_call}")
     rows = []
     for kind, args in cases:
         got, want = pattern_mine(*args), pattern_mine_ref(*args)
@@ -750,15 +789,18 @@ def mine_vs_plain(torch, dev, real_batch):
             raise AssertionError(f"pattern_mine kernel != plain: {kind} n={args[0].shape[0]} "
                                  f"max_abs_err={err}")
         n = args[0].shape[0]
-        nbytes = 45 * n  # src, dst 8 B, etype, count 4 B, valid 1 B read; 3 x 4 + 8 B written
-        rows.append({"batch": kind, "lanes": n, "valid": int(args[4].sum()),
-                     "flagged": int((want[2] != 0).sum()), "max_abs_err": err,
-                     "ms": _time_ms(torch, pattern_mine, (), args, KERNEL_REPS),
-                     "plain_ms": _time_ms(torch, pattern_mine_ref, (), args, PLAIN_REPS),
-                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"})
-        print("mine", json.dumps(rows[-1]), flush=True)
+        row = {"batch": kind, "lanes": n, "valid": int(args[4].sum()),
+               "flagged": int((want[2] != 0).sum()), "max_abs_err": err}
+        if kind in MINE_TIMED or kind == "path":
+            nbytes = 45 * n  # src, dst 8 B, etype, count 4 B, valid 1 B read; 3 x 4 + 8 B written
+            row.update(ms=_time_ms(torch, pattern_mine, (), args, KERNEL_REPS),
+                       plain_ms=_time_ms(torch, pattern_mine_ref, (), args, PLAIN_REPS),
+                       bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                       ctas_a_vector=cluster_plan(n), device_kernels=kernels_a_call[n])
+        rows.append(row)
+        print("mine", json.dumps(row), flush=True)
     print("pattern_mine kernel == plain bit for bit (tolerance 0) at all "
-          f"{len(rows)} batches", flush=True)
+          f"{len(rows)} batches; device kernels a call {json.dumps(kernels_a_call)}", flush=True)
     return rows
 
 
@@ -889,16 +931,19 @@ def _device_kernels(torch, fn, args):
     return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
-def _dedup_kernels_a_call(sizes):
-    """{n: device kernels of one sort_dedup call on n keys}, counted by
-    `_device_kernels` in a fresh process.  In this process, after the
-    profiled phases, a window of one call read no device event at all
-    (where a fresh process reads every kernel the plan launches); the
-    launches depend on n alone, not on the keys."""
-    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
-            "from repro_torch.kernels import ops; "
-            "print(json.dumps({n: cs._device_kernels(torch, ops.sort_dedup, "
-            "(torch.arange(n, device='cuda') % 1009,)) for n in map(int, sys.argv[2:])}))")
+def _kernels_a_call(fn, args, sizes):
+    """{n: device kernels of one call of `fn(*args)`}, counted by
+    `_device_kernels` in a fresh process (`fn` and `args` are Python
+    expressions there, `args` of n, with `cs` this module, `ops` and
+    `PM` the kernel modules).  In this process, after the profiled
+    phases, a window of one call read no device event at all (where a
+    fresh process reads every kernel the call launches); the launches
+    depend on n alone, not on the data."""
+    code = ("import json, sys, torch; import numpy as np; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as cs; "
+            "from repro_torch.kernels import ops, pattern_mine as PM; "
+            f"print(json.dumps({{n: cs._device_kernels(torch, {fn}, {args}) "
+            "for n in map(int, sys.argv[2:])}))")
     out = subprocess.run([sys.executable, "-c", code, str(ROOT), *map(str, sizes)],
                          check=True, capture_output=True, text=True).stdout
     return {int(n): count for n, count in json.loads(out.strip().splitlines()[-1]).items()}
@@ -926,7 +971,8 @@ def dedup_vs_plain(torch, dev):
     launches = dict(build.launches)
     if launches.get("sort_dedup", 0) != len(inputs):
         raise AssertionError(f"expected one sort_dedup launch per call: {launches}")
-    kernels_a_call = _dedup_kernels_a_call(DEDUP_LANES)
+    kernels_a_call = _kernels_a_call("ops.sort_dedup",
+                                     "(torch.arange(n, device='cuda') % 1009,)", DEDUP_LANES)
     rows = []
     for (n, kind, keys), (got, got_counts) in zip(inputs, outs):
         want = sort_dedup_plain(keys)
@@ -1106,9 +1152,20 @@ def sharded_breakdown(torch):
     ticks = pipe.source.ticks()
     pipe.run(itertools.islice(ticks, PROFILED_TICKS), max_ticks=PROFILED_TICKS)
     reg.enabled = True
-    _profiled(torch, f"sharded breakdown (ticks {PROFILED_TICKS} to {2 * PROFILED_TICKS - 1})",
-              reg, lambda: pipe.run(itertools.islice(ticks, PROFILED_TICKS),
-                                    max_ticks=PROFILED_TICKS), ticks=PROFILED_TICKS)
+    commits = dict(pipe.metrics.counters)
+    device = _profiled(
+        torch, f"sharded breakdown (ticks {PROFILED_TICKS} to {2 * PROFILED_TICKS - 1})", reg,
+        lambda: pipe.run(itertools.islice(ticks, PROFILED_TICKS), max_ticks=PROFILED_TICKS),
+        ticks=PROFILED_TICKS)
+    mined = sum(pipe.metrics.counters[k] - commits.get(k, 0) for k in ("commit", "commit-failed"))
+    k5 = [(name, ms, c) for name, ms, c in device if "pattern_mine" in name]
+    k5_ms = sum(ms for _, ms, _ in k5)
+    print("sharded K5 device: " + json.dumps({
+        "ticks": PROFILED_TICKS, "mined_commits": mined, "device_ms": k5_ms,
+        "device_ms_per_mined_commit": k5_ms / mined if mined else None,
+        "share_of_device_busy": k5_ms / sum(ms for _, ms, _ in device) if device else None,
+        "kernels": [{"name": name[:80], "ms": ms, "count": c} for name, ms, c in k5]}),
+        flush=True)
 
 
 def sharded_workload_path(torch):
@@ -1760,6 +1817,7 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in mine_rows),
         "ms": mref["ms"], "plain_ms": mref["plain_ms"], "bound_ms": mref["bound_ms"],
         "bound_by": mref["bound_by"], "library_ms": None,
+        "device_kernels": mref["device_kernels"],
         "shape": {k: mref[k] for k in ("batch", "lanes", "valid")},
     }, {
         "name": "sort_dedup", "route": "cuda",

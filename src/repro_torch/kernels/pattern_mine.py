@@ -9,14 +9,16 @@ sorted-vector problems over the dedup'd batch:
   hot edges      within-batch multiplicity >= hot_min
 
 Each admitted edge carries a pattern signature (the hub or relay id
-mixed with a pattern tag).  Keys are int64 tensors holding uint64 bits;
-the sorts and searches run on sign-flipped keys, whose signed order is
-the unsigned order, and invalid lanes hold the all-ones sentinel, which
-sorts last.
+mixed with a pattern tag).  Keys are int64 tensors holding uint64 bits.
+The plain version `pattern_mine_ref` sorts and searches as the
+reference does, on sign-flipped keys, whose signed order is the
+unsigned order; invalid lanes hold the all-ones sentinel, which sorts
+last.
 
 `pattern_mine` is the wrapper: on CUDA tensors it launches the
-hand-written kernel `csrc/pattern_mine.cu`, which sorts the three
-vectors in its own body; on CPU tensors it runs the plain version
+hand-written kernels of `csrc/pattern_mine.cu`, which count the three
+vectors' keys in hash tables in (distributed) shared memory instead of
+sorting them, by the plan `cluster_plan` gives; on CPU tensors it runs
 `pattern_mine_ref`.
 """
 from __future__ import annotations
@@ -42,7 +44,16 @@ FLAG_CHAIN = 4
 FLAG_HOT = 8
 
 MAX_LANES = 1 << 16  # the largest batch the reference's kernel takes
-SMEM_LANES = 1 << 13  # the kernel sorts in shared memory up to here (csrc kSmemLanes)
+# The kernel's hash tables (csrc kMinLanes, kSlotsPerCta, kMaxCluster,
+# kThreads): 2 max(n, 64) slots of 12 bytes for each vector, at most
+# 16,384 (192 KB of shared memory) in a CTA of a cluster of at most 8.
+# A cluster pays from 2,048 lanes: below, a single CTA's launch is 2 to 4
+# us quicker than any cluster's; from there, 8 CTAs beat 1, 2 and 4 at
+# every size (tools/k5_plan.py on an H100).
+MIN_TABLE_LANES = 64
+SLOTS_PER_CTA = 1 << 14
+MAX_CLUSTER = 8
+CLUSTER_LANES = 1 << 11
 
 Mined = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -128,24 +139,35 @@ def _check(src, dst, etype, count, valid):
         raise ValueError(f"all operands must be on one device, got {devices}")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+def cluster_plan(n: int) -> int:
+    """CTAs of each vector's cluster for a batch of n lanes: one below
+    CLUSTER_LANES, else MAX_CLUSTER.  Each vector's table of 2 max(n, 64)
+    slots (load at most 0.5) is spread over them; 65,536 lanes need all
+    8 CTAs' SLOTS_PER_CTA.  The count kernel runs three such clusters."""
+    return 1 if n < CLUSTER_LANES else MAX_CLUSTER
 
 
-def _launch(src, dst, etype, count, valid, star_min, hot_min) -> Mined:
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+
+
+def launch(src, dst, etype, count, valid, star_min, hot_min, ctas) -> Mined:
+    """The kernels on CUDA tensors that `_check` passed, with `ctas` CTAs
+    in each vector's cluster (a power of two up to MAX_CLUSTER that
+    divides n and leaves a CTA at most SLOTS_PER_CTA slots).
+    `pattern_mine` passes `cluster_plan(n)`; tools/k5_plan.py times
+    every plan the kernel takes."""
     fn = build.library("pattern_mine").pattern_mine_launch
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     n, dev = src.shape[0], src.device
     counts = torch.empty((3, n), dtype=torch.int32, device=dev)
     psig = torch.empty(n, dtype=torch.int64, device=dev)
-    # the three sort vectors live in shared memory up to SMEM_LANES
-    # edges, and in this scratch beyond
-    scratch = torch.empty(3 * n, dtype=torch.int64, device=dev) if n > SMEM_LANES else None
+    member = torch.empty(n, dtype=torch.uint8, device=dev)  # dst is some valid tail
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(src.data_ptr(), dst.data_ptr(), etype.data_ptr(), count.data_ptr(),
-             valid.data_ptr(), n, int(star_min), int(hot_min), counts[0].data_ptr(),
-             counts[1].data_ptr(), counts[2].data_ptr(), psig.data_ptr(),
-             None if scratch is None else scratch.data_ptr(), stream)
+             valid.data_ptr(), n, int(star_min), int(hot_min), int(ctas), counts[0].data_ptr(),
+             counts[1].data_ptr(), counts[2].data_ptr(), psig.data_ptr(), member.data_ptr(),
+             stream)
     if err != 0:
         raise RuntimeError(f"pattern_mine launch failed: cudaError {err}")
     build.launches["pattern_mine"] += 1
@@ -163,7 +185,8 @@ def pattern_mine(src: torch.Tensor, dst: torch.Tensor, etype: torch.Tensor,
     `pattern_mine_ref`."""
     _check(src, dst, etype, count, valid)
     if src.device.type == "cuda":
-        return _launch(src, dst, etype, count, valid, star_min, hot_min)
+        return launch(src, dst, etype, count, valid, star_min, hot_min,
+                      cluster_plan(src.shape[0]))
     if src.device.type == "cpu":
         return pattern_mine_ref(src, dst, etype, count, valid, star_min, hot_min)
     raise ValueError(f"pattern_mine runs on cuda or cpu, not {src.device}")

@@ -9,6 +9,17 @@ batches built to hold star bursts, cascade chains and hot edges, with
 ids on both branches of `mix_keys` (packed below 2^27, hashed above),
 and for a batch with no invalid lane, where the reference's binary
 search ends past the end for the largest key.
+
+The CUDA kernel counts in hash tables instead of sorting
+(`csrc/pattern_mine.cu`).  `_emulate` runs its design in torch: the
+same slot hash, linear probing across the C CTAs' slot ranges that
+`cluster_plan` gives for each n, claims in lock-step rounds (one
+schedule the atomics may take), the all-ones rule for T, the
+past-the-end one for GS and GD, and the flags pass.  It is held bit for
+bit to both packages' plain versions at 1 to 65,536 lanes and to the
+reference's Pallas kernel in interpret mode up to 1,024, on random,
+patterned, one-hub, extreme-id (0 and 2^64 - 1, with and without an
+invalid lane), all-invalid and all-valid batches.
 """
 import jax
 import jax.numpy as jnp
@@ -17,6 +28,7 @@ import pytest
 import torch
 
 from repro.kernels import pattern_mine as RM
+from repro_torch.core.compression import as_int64, lsr
 from repro_torch.kernels import pattern_mine as PM
 
 STAR_MIN, HOT_MIN = 4, 2
@@ -60,11 +72,15 @@ def _patterned_batch(rng, n, narrow):
     return src, dst, et, count, valid
 
 
-def _compare(src, dst, et, count, valid):
+def _jax_ref(src, dst, et, count, valid, fn=RM.pattern_mine_ref, **kw):
     with jax.enable_x64(True):
-        want = [np.asarray(w) for w in RM.pattern_mine_ref(
+        return [np.asarray(w) for w in fn(
             jnp.asarray(src), jnp.asarray(dst), jnp.asarray(et), jnp.asarray(count),
-            jnp.asarray(valid), STAR_MIN, HOT_MIN)]
+            jnp.asarray(valid), STAR_MIN, HOT_MIN, **kw)]
+
+
+def _compare(src, dst, et, count, valid):
+    want = _jax_ref(src, dst, et, count, valid)
     got = PM.pattern_mine(torch.from_numpy(src.view(np.int64)),
                           torch.from_numpy(dst.view(np.int64)), torch.from_numpy(et),
                           torch.from_numpy(count), torch.from_numpy(valid), STAR_MIN, HOT_MIN)
@@ -113,3 +129,177 @@ def test_wrapper_checks_its_inputs():
     z64, z32 = z64[:32], z32[:32]
     with pytest.raises(TypeError, match="int64"):
         PM.pattern_mine(z64.int(), z64, z32, z32, z32.bool(), STAR_MIN, HOT_MIN)
+
+
+# ---------------------------------------------------------------- the kernel's design
+
+EMPTY = -1  # the all-ones key: an empty slot, and the reference's sentinel
+_F1, _F2 = as_int64(0xBF58476D1CE4E5B9), as_int64(0x94D049BB133111EB)
+KINDS = ("random", "patterned", "hub", "extremes", "extremes_all_valid", "all_invalid",
+         "all_valid")
+
+
+def _slot_of(k):
+    """csrc slot_of: the splitmix64 finalizer (masked by the caller)."""
+    k = (k ^ lsr(k, 30)) * _F1
+    k = (k ^ lsr(k, 27)) * _F2
+    return k ^ lsr(k, 31)
+
+
+class _Table:
+    """One vector's table: S slots, CTA r holding slots r*spc .. r*spc+spc-1
+    as row r of (ctas, spc) arrays, probed linearly across the rows."""
+
+    def __init__(self, n):
+        self.ctas = PM.cluster_plan(n)
+        self.spc = 2 * max(n, PM.MIN_TABLE_LANES) // self.ctas
+        self.mask = self.ctas * self.spc - 1
+        self.keys = torch.full((self.ctas, self.spc), EMPTY, dtype=torch.int64)
+        self.counts = torch.zeros((self.ctas, self.spc), dtype=torch.int64)
+
+    def _at(self, s):
+        return s // self.spc, s % self.spc  # (CTA of the cluster, its slot)
+
+    def insert(self, keys):
+        """Insert keys (EMPTY never), each distinct key once with its number
+        of lanes (a warp's leader adds its peers' number; the sum is the
+        same).  In each round every pending key tries its slot; the first
+        of those that find it empty claims it, the rest probe on."""
+        uniq, num = torch.unique(keys[keys != EMPTY], return_counts=True)
+        pos = _slot_of(uniq) & self.mask
+        pending = torch.arange(uniq.numel())
+        for _ in range(self.mask + 1):
+            if pending.numel() == 0:
+                break
+            s = pos[pending]
+            empty = self.keys[self._at(s)] == EMPTY
+            first = torch.full((self.mask + 1,), uniq.numel(), dtype=torch.int64)
+            first.scatter_reduce_(0, s[empty], pending[empty], "amin")
+            won = empty & (first[s] == pending)
+            self.keys[self._at(s[won])] = uniq[pending[won]]
+            self.counts[self._at(s[won])] = num[pending[won]]
+            pos[pending[~won]] = (s[~won] + 1) & self.mask
+            pending = pending[~won]
+        assert pending.numel() == 0, "the table overflowed"
+
+    def find(self, q):
+        """Slot of each query key, or -1: probe to the key or an empty slot."""
+        pos, found = _slot_of(q) & self.mask, torch.full_like(q, -1)
+        active = torch.ones_like(q, dtype=torch.bool)
+        for _ in range(self.mask + 1):
+            if not active.any():
+                break
+            cur = self.keys[self._at(pos)]
+            hit, miss = active & (cur == q), active & (cur == EMPTY)
+            found = torch.where(hit, pos, found)
+            active &= ~(hit | miss)
+            pos = (pos + 1) & self.mask
+        return found
+
+
+def _emulate(src, dst, et, count, valid, star_min=STAR_MIN, hot_min=HOT_MIN):
+    """The CUDA design on numpy inputs: (fan_out, fan_in, flags, psig)."""
+    src, dst = torch.from_numpy(src.view(np.int64)), torch.from_numpy(dst.view(np.int64))
+    et, count, valid = torch.from_numpy(et), torch.from_numpy(count), torch.from_numpy(valid)
+    n = src.shape[0]
+    fans = []
+    for ids, tag in ((src, PM.TAG_STAR_OUT), (dst, PM.TAG_STAR_IN)):
+        key = torch.where(valid, PM._tag(ids, et, tag), torch.full_like(ids, EMPTY))
+        table = _Table(n)
+        table.insert(key)
+        slot = table.find(key)
+        fan = torch.where(valid, table.counts[table._at(slot.clamp(min=0))],
+                          torch.zeros_like(slot))
+        # past the end: no invalid lane, so the largest key is a real one
+        if n >= 2 and bool(valid.all()):
+            top = (key ^ (-(1 << 63))).max() ^ (-(1 << 63))
+            fan = fan + (key == top).long()
+        fans.append(fan.to(torch.int32))
+    tails = _Table(n)
+    tails.insert(torch.where(valid, src, torch.full_like(src, EMPTY)))
+    any_flag = bool((~valid).any() or (valid & (src == EMPTY)).any())
+    member = torch.where(dst == EMPTY, torch.full_like(valid, any_flag), tails.find(dst) >= 0)
+    # the flags pass
+    fan_out, fan_in = fans
+    chain = valid & member & (dst != src)
+    staro, stari = valid & (fan_out >= star_min), valid & (fan_in >= star_min)
+    hot = valid & (count >= hot_min)
+    flags = (staro.int() * PM.FLAG_STAR_OUT + stari.int() * PM.FLAG_STAR_IN
+             + chain.int() * PM.FLAG_CHAIN + hot.int() * PM.FLAG_HOT)
+    psig = torch.where(hot, PM._tag(src, et, PM.TAG_HOT), torch.zeros_like(src))
+    psig = torch.where(chain, PM._tag(dst, et, PM.TAG_CHAIN), psig)
+    psig = torch.where(stari, PM._tag(dst, et, PM.TAG_STAR_IN), psig)
+    psig = torch.where(staro, PM._tag(src, et, PM.TAG_STAR_OUT), psig)
+    return [fan_out.numpy(), fan_in.numpy(), flags.numpy(), psig.numpy().view(np.uint64)]
+
+
+def _kind_batch(rng, n, kind):
+    if kind == "random":
+        return _random_batch(rng, n, narrow=False)
+    if kind == "patterned":
+        return _patterned_batch(rng, n, narrow=True)
+    src, dst, et, count, valid = _random_batch(rng, n, narrow=kind != "all_invalid")
+    if kind == "hub":  # one (src, etype) owns every lane; some heads are the hub
+        src[:] = src[0]
+        et[:] = 1
+        dst[rng.random(n) < 0.1] = src[0]
+        valid[:] = True
+    elif kind.startswith("extremes"):
+        ids = np.array([0, 2**64 - 1, 1, 2**63, (1 << 27) - 1, 1 << 27], dtype=np.uint64)
+        src, dst = ids[rng.integers(0, ids.size, n)], ids[rng.integers(0, ids.size, n)]
+        valid[:] = True
+        if kind == "extremes":
+            valid[rng.integers(0, n)] = False
+    elif kind == "all_invalid":
+        valid[:] = False
+    elif kind == "all_valid":
+        valid[:] = True
+    return src, dst, et, count, valid
+
+
+def _assert_same(got, want, what):
+    for name, g, w in zip(("fan_out", "fan_in", "flags", "psig"), got, want):
+        np.testing.assert_array_equal(np.asarray(g).view(np.asarray(w).dtype), w,
+                                      err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", [1, 2, 64, 1_024, 2_048, 4_096, 8_192, 16_384, 65_536])
+def test_hash_design_matches_both_plain_versions(n, kind):
+    batch = _kind_batch(np.random.default_rng(1_000 + n + KINDS.index(kind)), n, kind)
+    got = _emulate(*batch)
+    port = PM.pattern_mine_ref(*(torch.from_numpy(x.view(np.int64) if x.dtype == np.uint64
+                                                  else x) for x in batch), STAR_MIN, HOT_MIN)
+    _assert_same(got, [p.numpy() for p in port[:3]] + [port[3].numpy().view(np.uint64)],
+                 "port's plain version")
+    _assert_same(got, _jax_ref(*batch), "reference's plain version")
+
+
+@pytest.mark.parametrize("kind", ("random", "hub", "extremes", "extremes_all_valid"))
+@pytest.mark.parametrize("n", [1, 2, 64, 1_024])
+def test_hash_design_matches_pallas_kernel(n, kind):
+    batch = _kind_batch(np.random.default_rng(2_000 + n + KINDS.index(kind)), n, kind)
+    _assert_same(_emulate(*batch), _jax_ref(*batch, fn=RM.pattern_mine, interpret=True),
+                 "reference's Pallas kernel")
+
+
+@pytest.mark.parametrize("log_n", range(17))
+def test_cluster_plan_fits_the_card(log_n):
+    n = 1 << log_n
+    ctas = PM.cluster_plan(n)
+    assert 1 <= ctas <= 8 and ctas & (ctas - 1) == 0  # a portable cluster; 3 of them
+    assert n % ctas == 0 and n // ctas <= 8 * 1024  # at most 8 lanes a thread of 1,024
+    slots = 2 * max(n, 64) // ctas  # the kernel's table of 2 max(n, 64) over its CTAs
+    assert slots * ctas == 2 * max(n, 64)
+    assert slots * (8 + 4) <= 192 * 1024  # 8-byte key and 4-byte count a slot
+    assert n <= 0.5 * ctas * slots  # load at most 0.5: every probe ends
+
+
+def test_hub_fan_is_past_the_end_where_no_lane_is_invalid():
+    """The reference's upper bound ends at n + 1 for its largest key when
+    no lane is invalid: a hub owning all 64 lanes gets fan_out 65."""
+    src, dst, et, count, valid = _kind_batch(np.random.default_rng(5), 64, "hub")
+    assert (_emulate(src, dst, et, count, valid)[0] == 65).all()
+    assert (_jax_ref(src, dst, et, count, valid)[0] == 65).all()
+    valid[3] = False
+    assert (_emulate(src, dst, et, count, valid)[0][valid] == 63).all()
