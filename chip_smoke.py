@@ -5,15 +5,26 @@
 
 Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
 (one nvcc per source, all at once), then:
-  1. holds each kernel against its plain PyTorch version on the card, at
-     the main path's shapes, bit for bit (tolerance 0), and times both
-     (CUDA events);
+  1. holds the fused upsert (K1) against its plain PyTorch version on
+     the card, bit for bit (tolerance 0: table, slot, is_new) under every
+     cluster width its kernel takes (1, 2, 4, 8, 16 CTAs, each with at
+     least a warp's lanes, and the plan's), at the node and edge sweeps
+     (16,384 and 8,192 lanes) at loads 0 to 0.85 and budgets 32 to 128,
+     at the paths' own lane counts (node 128 to 8,192, edge 64 to 4,096)
+     at loads 0 and 0.5, at the GraphZip dictionary's table (cap 4,096,
+     budget 16, 64 to 8,192 lanes), and at eight corner cases (a
+     capacity of 7, key 0 and duplicates, key 0 losing a claim, all
+     lanes invalid, budgets 0 and 1, no lanes, 1,024 lanes crowding 8
+     slots); times the plan's
+     launch and the plain version (CUDA events) and gives each row's
+     bound and the most rounds a lane took;
   2. drives the port's main path, `repro_torch.launch.ingest.main`, for
      120 ticks at the default deployment, with the launch counters set
-     to 0 just before and read just after;
+     to 0 just before and read just after, and counts K1's launches by
+     lane count;
   3. runs that loop again with span telemetry on and under
      torch.profiler, and prints where a tick goes (host stages, device
-     busy time, the device's idle share);
+     busy time, the device's idle share) and K1's device ms a launch;
   4. runs the uncontrolled loop (seed 0, 40 ticks, 2^12/2^14 store) on
      the card and on the host and requires equal stores and reports;
   5. holds the sketch-scatter kernel against its plain version on the
@@ -75,7 +86,8 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      --dict-compress`, for 120 ticks at the default deployment, with the
      launch counters set to 0 just before and read just after;
  17. runs that loop again, spans on and under torch.profiler for ticks
-     40 to 79, and prints K5's device time over those ticks;
+     40 to 79, and prints K5's and K1's device time over those ticks,
+     with K1's launches by lane count;
  18. drives the workload CLI's own example, `launch.workload --scenario
      flash_crowd --shards 4 --sketch-control`, at its default deployment
      (240 ticks), the same way;
@@ -119,6 +131,8 @@ time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
 JSON line.  It exits non-zero without a CUDA device or without the port
 beside it.
 """
+import collections
+import contextlib
 import copy
 import json
 import statistics
@@ -138,6 +152,16 @@ NODE_SWEEP = ("node", 1 << 20, 16_384)  # store_nodes, 2 x max_edges_per_batch l
 EDGE_SWEEP = ("edge", 1 << 21, 8_192)  # store_edges, max_edges_per_batch lanes
 LOADS = (0.0, 0.5, 0.7, 0.85)
 PROBES = (32, 64, 128)
+# K1 at the paths' own lane counts: the edge table's power-of-two caps (64
+# to 8,192, api/stages.py) and twice that for nodes, at the loads below
+# 0.6, where the store's budget is MAX_PROBES (32); and the GraphZip
+# dictionary's table (cap 4,096, DICT_PROBES 16), whose lanes are the
+# edge table's
+PATH_LANES = {"node": tuple(1 << k for k in range(7, 14)),
+              "edge": tuple(1 << k for k in range(6, 13))}
+PATH_LOADS, PATH_PROBES = (0.0, 0.5), 32
+DICT_SWEEP, DICT_LANES, DICT_PROBES = ("dict", 4_096, 8_192), (64, 512, 8_192), 16
+UPSERT_CTAS = (1, 2, 4, 8, 16)  # every cluster width K1's kernel takes
 FILL_PROBES = 1 << 12  # fills the test tables without dropping keys
 KERNEL_REPS, PLAIN_REPS = 20, 5
 SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's clock: covers a launch's host work
@@ -233,73 +257,222 @@ def _least_bytes(torch, probe_hash, keys, valid, slot, is_new, cap, probes):
     slot and is_new written, the probe budget, one 8-byte table slot
     read per probe round each valid lane takes, one written per new key.
     A placed lane took (slot - first candidate) mod cap + 1 rounds (cap
-    is a power of two), a dropped lane the whole budget."""
+    is a power of two), a dropped lane the whole budget.  Returns (bytes,
+    probe reads, the most rounds a lane took)."""
     n = keys.shape[0]
     first = probe_hash(keys, cap, 0)
     rounds = torch.where(slot >= 0, (slot.long() - first) % cap + 1,
-                         torch.full_like(first, probes))
-    reads = int(rounds[valid].sum())
-    return n * (8 + 1) + n * (4 + 1) + 4 + 8 * reads + 8 * int(is_new.sum()), reads
+                         torch.full_like(first, probes))[valid]
+    reads = int(rounds.sum())
+    max_rounds = int(rounds.max()) if rounds.numel() else 0
+    return n * (8 + 1) + n * (4 + 1) + 4 + 8 * reads + 8 * int(is_new.sum()), reads, max_rounds
+
+
+def upsert_tables(torch, dev, rng, cap, lanes, loads):
+    """Yields (load, table, fill_keys, m) for each load: `table` (cap,)
+    on `dev` holds the first m = load x cap of `fill_keys`, placed by the
+    plain version (not the kernel under test); the last `lanes` of
+    `fill_keys` are never placed."""
+    from repro_torch.kernels.upsert import fused_upsert_ref
+
+    fill_keys = torch.from_numpy(_random_keys(rng, int(max(loads) * cap) + lanes)).to(dev)
+    table = torch.zeros(cap, dtype=torch.int64, device=dev)
+    filled = 0
+    for load in loads:
+        m = int(load * cap)
+        if m > filled:
+            part = fill_keys[filled:m]
+            _, fslot, _ = fused_upsert_ref(table, part, torch.ones_like(part, dtype=torch.bool),
+                                           FILL_PROBES)
+            if bool((fslot < 0).any()):
+                raise AssertionError(f"fill of a {cap}-slot table to load {load} dropped keys")
+            filled = m
+        yield load, table, fill_keys, m
+
+
+def upsert_batch(torch, dev, rng, fill_keys, m, n):
+    """n keys and valid flags: 30% of the lanes (at most m) look up keys
+    already in the table, the rest are new; about 10% are invalid."""
+    perm = torch.from_numpy(rng.permutation(m)[: int(0.3 * n)]).to(dev)
+    present = fill_keys[perm]
+    fresh = fill_keys[-(n - present.numel()):]
+    keys = torch.cat([present, fresh])[torch.from_numpy(rng.permutation(n)).to(dev)]
+    valid = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    return keys.contiguous(), valid
+
+
+def upsert_widths(n):
+    """The cluster widths K1 is held to at n lanes: every width of
+    UPSERT_CTAS that leaves each CTA at least a warp's lanes and at most
+    MAX_CTA_LANES, and the plan's own."""
+    from repro_torch.kernels import upsert
+
+    widths = {c for c in UPSERT_CTAS if n >= 32 * c and -(-n // c) <= upsert.MAX_CTA_LANES}
+    return sorted(widths | {upsert.cluster_plan(n)})
+
+
+def upsert_row(torch, sweep, cap, table, filled, keys, valid, probes):
+    """One phase-1 row: the kernel under every width of `upsert_widths`,
+    each bit-equal to the plain version (table, slot and is_new), on a
+    fresh copy of `table`; the plan's time and the plain version's, the
+    bound, and the most rounds a lane took."""
+    from repro_torch.kernels import upsert
+
+    n, dev = keys.shape[0], keys.device
+    budget = torch.tensor(probes, dtype=torch.int32, device=dev)
+    tp, sp, np_ = upsert.fused_upsert_ref(table.clone(), keys, valid, budget)
+    widths, err = upsert_widths(n), 0
+    for c in widths:
+        tk, sk, nk = upsert.launch(table.clone(), keys, valid, budget, c)
+        torch.cuda.synchronize()
+        table_equal = torch.equal(tk, tp)
+        err = max(err, int((sk.long() - sp.long()).abs().max()) if n else 0,
+                  int((nk.int() - np_.int()).abs().max()) if n else 0,
+                  0 if table_equal else int((tk != tp).sum()))
+        if not (table_equal and torch.equal(sk, sp) and torch.equal(nk, np_)):
+            raise AssertionError(f"fused_upsert kernel != plain: {sweep} lanes={n} "
+                                 f"load={filled / cap} probes={probes} ctas={c} "
+                                 f"max_abs_err={err}")
+    nbytes, reads, max_rounds = _least_bytes(torch, upsert.probe_hash, keys, valid, sp, np_,
+                                             cap, probes)
+    first = upsert.probe_hash(keys[valid], cap, 0)
+    return {
+        "sweep": sweep, "cap": cap, "lanes": n, "table_load": filled / cap, "probes": probes,
+        "hits": int(((sp >= 0) & ~np_).sum()), "new": int(np_.sum()),
+        "dropped": int((valid & (sp < 0)).sum()),
+        "contended_lanes": int(first.numel() - torch.unique(first).numel()),
+        "probe_reads": reads, "max_rounds": max_rounds, "max_abs_err": err,
+        "ctas": upsert.cluster_plan(n), "widths_checked": widths,
+        "ms": _time_ms(torch, upsert.fused_upsert, table, (keys, valid, budget), KERNEL_REPS),
+        "plain_ms": _time_ms(torch, upsert.fused_upsert_ref, table, (keys, valid, budget),
+                             PLAIN_REPS),
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+    }
+
+
+def upsert_specials(torch, dev):
+    """K1's corner cases, held bit for bit to the plain version under
+    every cluster width that fits (CTAs without lanes included), untimed:
+    a capacity of 7 (no power of two) that drops lanes; key 0 and
+    duplicate keys in 1,000 lanes (no multiple of a warp); key 0 and three
+    larger keys claiming empty slot 0 in one round; an all-invalid
+    batch; budgets 0 and 1; no lanes at all; and 8,192 lanes of which
+    1,024 crowd onto 8 first slots of a 16,384-slot table at load 0.5,
+    so that claims of one CTA decide another's.  Returns the count."""
+    from repro_torch.kernels import upsert
+
+    rng = np.random.default_rng(4)
+
+    def table_at(cap, load, pool):
+        table = torch.zeros(cap, dtype=torch.int64, device=dev)
+        m = int(load * cap)
+        part = torch.from_numpy(pool[:m]).to(dev)
+        upsert.fused_upsert_ref(table, part, torch.ones(m, dtype=torch.bool, device=dev),
+                                FILL_PROBES)
+        return table
+
+    cases = []
+    pool = _random_keys(rng, 1 << 16)
+    cases.append(("cap 7", table_at(7, 0.3, pool), pool[-64:], rng.random(64) >= 0.1, 8))
+    dup = np.concatenate([[0], pool[-300:]])[rng.integers(0, 301, 1_000)]
+    cases.append(("key 0 and duplicates", table_at(1_024, 0.5, pool), dup,
+                  rng.random(1_000) >= 0.1, 64))
+    first = upsert.probe_hash(torch.from_numpy(pool), 1_024, 0).numpy()
+    rivals = np.concatenate([[0], pool[first == 0][:3], pool[first != 0][:60]])
+    cases.append(("key 0 losing a claim", table_at(1_024, 0.0, pool), rivals,
+                  np.ones(rivals.size, bool), 8))
+    cases.append(("all invalid", table_at(1 << 14, 0.5, pool), pool[-4_096:],
+                  np.zeros(4_096, bool), 32))
+    for budget in (0, 1):
+        cases.append((f"budget {budget}", table_at(1 << 14, 0.5, pool), pool[-2_048:],
+                      rng.random(2_048) >= 0.1, budget))
+    cases.append(("no lanes", table_at(1 << 10, 0.5, pool), pool[:0], np.zeros(0, bool), 32))
+    cap = 1 << 14
+    many = _random_keys(rng, 1 << 21)
+    first = upsert.probe_hash(torch.from_numpy(many), cap, 0).numpy()
+    hot = np.flatnonzero(np.isin(first, rng.choice(cap, 8, replace=False)))[:1_024]
+    crowd = np.concatenate([many[hot], np.setdiff1d(many[-8_192:], many[hot])[:8_192 - hot.size]])
+    cases.append(("crowded", table_at(cap, 0.5, pool), crowd[rng.permutation(8_192)],
+                  rng.random(8_192) >= 0.1, 128))
+    for what, table, keys, valid, budget in cases:
+        keys = torch.from_numpy(np.ascontiguousarray(keys).view(np.int64)).to(dev)
+        valid = torch.from_numpy(np.ascontiguousarray(valid)).to(dev)
+        n = keys.shape[0]
+        want = upsert.fused_upsert_ref(table.clone(), keys, valid, budget)
+        for c in (c for c in UPSERT_CTAS if -(-n // c) <= upsert.MAX_CTA_LANES):
+            got = upsert.launch(table.clone(), keys, valid, budget, c)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"fused_upsert kernel != plain: {what}, ctas={c}")
+    print(f"fused_upsert kernel == plain bit for bit at {len(cases)} corner cases "
+          f"under every cluster width", flush=True)
+    return len(cases)
 
 
 def kernel_vs_plain(torch, dev):
-    """Phase 1: fused_upsert kernel vs its plain version, bit-equal."""
-    from repro_torch.kernels.upsert import fused_upsert, fused_upsert_ref, probe_hash
-
-    rng = np.random.default_rng(0)
+    """Phase 1: fused_upsert kernel vs its plain version, bit-equal under
+    every cluster width, at the phase's 24 shapes, the paths' own lane
+    counts and the dictionary's table."""
+    rng, path_rng = np.random.default_rng(0), np.random.default_rng(1)
     rows = []
+
+    def add(row, **extra):
+        rows.append({**extra, **row})
+        print("upsert", json.dumps(rows[-1]), flush=True)
+
     for sweep, cap, n in (NODE_SWEEP, EDGE_SWEEP):
-        fill_keys = torch.from_numpy(_random_keys(rng, int(max(LOADS) * cap) + n)).to(dev)
-        table = torch.zeros(cap, dtype=torch.int64, device=dev)
-        filled = 0
-        for load in LOADS:
-            m = int(load * cap)
-            if m > filled:  # fill with the plain version, not the kernel under test
-                part = fill_keys[filled:m]
-                _, fslot, _ = fused_upsert_ref(table, part, torch.ones_like(part, dtype=torch.bool),
-                                               FILL_PROBES)
-                if bool((fslot < 0).any()):
-                    raise AssertionError(f"{sweep} fill to load {load} dropped keys")
-                filled = m
-            # 30% of the lanes look up keys already in the table, the
-            # rest are new; about 10% of the lanes are invalid
-            perm = torch.from_numpy(rng.permutation(m)[: int(0.3 * n)]).to(dev)
-            present = fill_keys[perm]
-            fresh = fill_keys[-(n - present.numel()):]
-            keys = torch.cat([present, fresh])[torch.from_numpy(rng.permutation(n)).to(dev)]
-            keys = keys.contiguous()
-            valid = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
-            first = probe_hash(keys[valid], cap, 0)
-            contended = int(first.numel() - torch.unique(first).numel())
+        for load, table, fill_keys, m in upsert_tables(torch, dev, rng, cap, n, LOADS):
+            keys, valid = upsert_batch(torch, dev, rng, fill_keys, m, n)
             for probes in PROBES:
-                budget = torch.tensor(probes, dtype=torch.int32, device=dev)
-                tk, sk, nk = fused_upsert(table.clone(), keys, valid, budget)
-                tp, sp, np_ = fused_upsert_ref(table.clone(), keys, valid, budget)
-                torch.cuda.synchronize()
-                table_equal = torch.equal(tk, tp)
-                err = max(int((sk.long() - sp.long()).abs().max()),
-                          int((nk.int() - np_.int()).abs().max()),
-                          0 if table_equal else int((tk != tp).sum()))
-                if not (table_equal and torch.equal(sk, sp) and torch.equal(nk, np_)):
-                    raise AssertionError(f"fused_upsert kernel != plain: {sweep} "
-                                         f"load={load} probes={probes} max_abs_err={err}")
-                nbytes, reads = _least_bytes(torch, probe_hash, keys, valid, sp, np_, cap, probes)
-                rows.append({
-                    "sweep": sweep, "cap": cap, "lanes": n, "load": load,
-                    "table_load": filled / cap, "probes": probes,
-                    "hits": int(((sp >= 0) & ~np_).sum()), "new": int(np_.sum()),
-                    "dropped": int((valid & (sp < 0)).sum()), "contended_lanes": contended,
-                    "probe_reads": reads, "max_abs_err": err,
-                    "ms": _time_ms(torch, fused_upsert, table, (keys, valid, budget),
-                                   KERNEL_REPS),
-                    "plain_ms": _time_ms(torch, fused_upsert_ref, table,
-                                         (keys, valid, budget), PLAIN_REPS),
-                    "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
-                })
-                print("upsert", json.dumps(rows[-1]), flush=True)
+                add(upsert_row(torch, sweep, cap, table, m, keys, valid, probes), load=load)
+            if load in PATH_LOADS:
+                for lanes in PATH_LANES[sweep]:
+                    keys, valid = upsert_batch(torch, dev, path_rng, fill_keys, m, lanes)
+                    add(upsert_row(torch, sweep, cap, table, m, keys, valid, PATH_PROBES),
+                        load=load, batch="path")
+    sweep, cap, n = DICT_SWEEP
+    for load, table, fill_keys, m in upsert_tables(torch, dev, path_rng, cap, n, PATH_LOADS):
+        for lanes in DICT_LANES:
+            keys, valid = upsert_batch(torch, dev, path_rng, fill_keys, m, lanes)
+            add(upsert_row(torch, sweep, cap, table, m, keys, valid, DICT_PROBES),
+                load=load, batch="path")
     print("fused_upsert kernel == plain bit for bit (tolerance 0) at all "
-          f"{len(rows)} shapes", flush=True)
+          f"{len(rows)} shapes, under every cluster width checked", flush=True)
+    upsert_specials(torch, dev)
     return rows
+
+
+@contextlib.contextmanager
+def k1_lanes():
+    """Counts K1's launches by lane count inside the block: wraps
+    `upsert.launch`, which `fused_upsert` looks up at each call."""
+    from repro_torch.kernels import upsert
+
+    hist, real = collections.Counter(), upsert.launch
+
+    def counted(table, keys, *args):
+        hist[keys.shape[0]] += 1
+        return real(table, keys, *args)
+
+    upsert.launch = counted
+    try:
+        yield hist
+    finally:
+        upsert.launch = real
+
+
+def k1_device(label, device, hist):
+    """Prints K1's device ms over a profiled run (`_profiled`'s events)
+    beside its launches by lane count."""
+    k1 = [(name, ms, c) for name, ms, c in device if "fused_upsert" in name]
+    ms, count = sum(ms for _, ms, _ in k1), sum(c for _, _, c in k1)
+    print(f"{label} K1 device: " + json.dumps({
+        "device_ms": ms, "device_kernels": count, "launches": sum(hist.values()),
+        "device_ms_per_launch": ms / count if count else None,
+        "share_of_device_busy": ms / sum(m for _, m, _ in device) if device else None,
+        "lanes": dict(sorted(hist.items())),
+        "kernels": [{"name": name[:80], "ms": m, "count": c} for name, m, c in k1]}),
+        flush=True)
 
 
 def main_path(torch):
@@ -309,8 +482,9 @@ def main_path(torch):
 
     build.launches.clear()
     t0 = time.perf_counter()
-    rep, pipe = ingest.main(["--ticks", str(MAIN_TICKS)])
-    torch.cuda.synchronize()
+    with k1_lanes() as hist:
+        rep, pipe = ingest.main(["--ticks", str(MAIN_TICKS)])
+        torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(build.launches)
     commits = [c for c in pipe.sink.ingestor.commits if c.ok]
@@ -328,6 +502,7 @@ def main_path(torch):
           f"commit_busy_ms_mean={statistics.mean(busy)} "
           f"commit_busy_ms_p50={statistics.median(busy)} commit_busy_ms_max={max(busy)} "
           f"launches={launches}", flush=True)
+    print("main path K1 lanes: " + json.dumps(dict(sorted(hist.items()))), flush=True)
     return launches
 
 
@@ -379,7 +554,9 @@ def tick_breakdown(torch):
             .with_metrics(MetricsHub(telemetry=reg)).build())
     pipe.transform.telemetry = reg
     pipe.sink.ingestor.telemetry = reg
-    _profiled(torch, "breakdown", reg, lambda: pipe.run(max_ticks=MAIN_TICKS))
+    with k1_lanes() as hist:
+        device = _profiled(torch, "breakdown", reg, lambda: pipe.run(max_ticks=MAIN_TICKS))
+    k1_device("breakdown", device, hist)
 
 
 def cuda_vs_cpu(torch):
@@ -1153,10 +1330,12 @@ def sharded_breakdown(torch):
     pipe.run(itertools.islice(ticks, PROFILED_TICKS), max_ticks=PROFILED_TICKS)
     reg.enabled = True
     commits = dict(pipe.metrics.counters)
-    device = _profiled(
-        torch, f"sharded breakdown (ticks {PROFILED_TICKS} to {2 * PROFILED_TICKS - 1})", reg,
-        lambda: pipe.run(itertools.islice(ticks, PROFILED_TICKS), max_ticks=PROFILED_TICKS),
-        ticks=PROFILED_TICKS)
+    with k1_lanes() as hist:
+        device = _profiled(
+            torch, f"sharded breakdown (ticks {PROFILED_TICKS} to {2 * PROFILED_TICKS - 1})",
+            reg, lambda: pipe.run(itertools.islice(ticks, PROFILED_TICKS),
+                                  max_ticks=PROFILED_TICKS),
+            ticks=PROFILED_TICKS)
     mined = sum(pipe.metrics.counters[k] - commits.get(k, 0) for k in ("commit", "commit-failed"))
     k5 = [(name, ms, c) for name, ms, c in device if "pattern_mine" in name]
     k5_ms = sum(ms for _, ms, _ in k5)
@@ -1166,6 +1345,7 @@ def sharded_breakdown(torch):
         "share_of_device_busy": k5_ms / sum(ms for _, ms, _ in device) if device else None,
         "kernels": [{"name": name[:80], "ms": ms, "count": c} for name, ms, c in k5]}),
         flush=True)
+    k1_device("sharded", device, hist)
 
 
 def sharded_workload_path(torch):
@@ -1764,8 +1944,8 @@ def main():
     phase(25, serve_cuda_vs_cpu, torch)
 
     # the main path's widest sweep at its own table load (under 1%)
-    ref = next(r for r in rows if r["sweep"] == "node" and r["load"] == 0.0
-               and r["probes"] == 32)
+    ref = next(r for r in rows if r["sweep"] == "node" and r["lanes"] == NODE_SWEEP[2]
+               and r["load"] == 0.0 and r["probes"] == 32)
     # the query path's widest sketch update, with skewed keys as tweets have
     sref = next(r for r in sketch_rows if r["width"] == 512 and r["lanes"] == 8_192
                 and r["keys"] == "zipf")
@@ -1788,7 +1968,8 @@ def main():
         "launches": launches["fused_upsert"], "matched": True,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": ref["ms"], "plain_ms": ref["plain_ms"], "bound_ms": ref["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
+        "bound_by": "bytes", "library_ms": None, "max_rounds": ref["max_rounds"],
+        "ctas": ref["ctas"],
         "shape": {k: ref[k] for k in ("sweep", "cap", "lanes", "load", "probes")},
     }, {
         "name": "sketch_scatter", "route": "cuda",

@@ -8,10 +8,12 @@ new), or probes on.  Keys are int64 tensors holding uint64 bits;
 0 marks an empty slot.
 
 `fused_upsert` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel `csrc/fused_upsert.cu`, on a CPU tensor it runs the
-plain version `fused_upsert_ref`.  Both update the table IN PLACE and
-return it; the reference returns a fresh copy of the table (up to
-16 MB per sweep at the default store size) instead.
+hand-written kernel `csrc/fused_upsert.cu` (a live-lane worklist in
+shared memory, two barriers a round) as one CTA or one cluster of CTAs,
+by the plan `cluster_plan` gives; on a CPU tensor it runs the plain
+version `fused_upsert_ref`.  Both update the table IN PLACE and return
+it; the reference returns a fresh copy of the table (up to 16 MB per
+sweep at the default store size) instead.
 """
 from __future__ import annotations
 
@@ -25,7 +27,20 @@ from repro_torch.kernels import build
 _PROBE_MUL = 0x9E3779B97F4A7C15 - (1 << 64)  # the uint64 constant's int64 bits
 _LOW32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)
-_MAX_CAP = 1 << 30  # slot ids and pending-claim codes must fit an int32
+_MAX_CAP = 1 << 30  # slot ids must fit an int32
+# The kernel's limits (csrc kMaxCtaLanes, kMaxCluster, kHandOver): a CTA
+# takes at most 16,384 lanes (16 a thread of 1,024; 12 bytes of shared
+# memory a lane), a cluster at most 16 CTAs, and a cluster hands its live
+# lanes to its first CTA once at most HAND_OVER_LANES are left.
+MAX_CTA_LANES = 1 << 14
+MAX_CLUSTER = 16
+MAX_LANES = MAX_CLUSTER * MAX_CTA_LANES
+HAND_OVER_LANES = 1 << 11
+# A cluster pays from 4,096 lanes: below, one CTA's launch and barriers
+# beat every cluster's; from there 8 CTAs spread round 0's reads and
+# claims and beat 1, 2 and 4 (tools/k1_plan.py on an H100).
+CLUSTER_LANES = 1 << 12
+PLAN_CTAS = 8
 
 
 def probe_hash(keys: torch.Tensor, cap: int, i: Union[int, torch.Tensor]) -> torch.Tensor:
@@ -90,11 +105,29 @@ def fused_upsert_ref(table: torch.Tensor, keys: torch.Tensor, valid: torch.Tenso
     return table, slot, is_new
 
 
+def cluster_plan(n: int) -> int:
+    """CTAs of the sweep's cluster for a batch of n lanes: one below
+    CLUSTER_LANES, else PLAN_CTAS, or the fewest powers of two above that
+    leave a CTA at most MAX_CTA_LANES lanes."""
+    if n > MAX_LANES:
+        raise ValueError(f"fused_upsert's kernel takes at most {MAX_LANES} lanes, got {n}")
+    if n < CLUSTER_LANES:
+        return 1
+    ctas = PLAN_CTAS
+    while -(-n // ctas) > MAX_CTA_LANES:
+        ctas *= 2
+    return ctas
+
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _launch(table, keys, valid, n_probes):
+def launch(table, keys, valid, n_probes, ctas):
+    """The kernel on CUDA tensors that `_check` passed, as one cluster
+    of `ctas` CTAs (1 to MAX_CLUSTER, each with at most MAX_CTA_LANES
+    lanes).  `fused_upsert` passes `cluster_plan(n)`; tools/k1_plan.py
+    times every plan the kernel takes."""
     fn = build.library("fused_upsert").fused_upsert_launch
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -106,7 +139,7 @@ def _launch(table, keys, valid, n_probes):
     is_new = torch.empty(n, dtype=torch.bool, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = fn(table.data_ptr(), table.shape[0], keys.data_ptr(), valid.data_ptr(), n,
-             probes.data_ptr(), slot.data_ptr(), is_new.data_ptr(), stream)
+             probes.data_ptr(), int(ctas), slot.data_ptr(), is_new.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_upsert launch failed: cudaError {err}")
     build.launches["fused_upsert"] += 1
@@ -122,10 +155,11 @@ def fused_upsert(table: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
     n_probes the probe budget (an int, or an int32 scalar tensor on the
     table's device, read by the kernel so the host never waits for it).
     Returns (table, slot int32 (-1 = dropped), is_new bool).  A CUDA
-    table launches the kernel, a CPU table runs `fused_upsert_ref`."""
+    table launches the kernel (at most MAX_LANES lanes), a CPU table
+    runs `fused_upsert_ref`."""
     _check(table, keys, valid, n_probes)
     if table.device.type == "cuda":
-        return _launch(table, keys, valid, n_probes)
+        return launch(table, keys, valid, n_probes, cluster_plan(keys.shape[0]))
     if table.device.type == "cpu":
         return fused_upsert_ref(table, keys, valid, n_probes)
     raise ValueError(f"fused_upsert runs on cuda or cpu, not {table.device}")

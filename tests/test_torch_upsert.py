@@ -158,3 +158,273 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         table, keys, valid = table.to("meta"), keys.to("meta"), valid.to("meta")
     with pytest.raises((TypeError, ValueError)):
         port.fused_upsert(table, keys, valid, 32)
+
+
+# ---- the kernel's schedule (csrc/fused_upsert.cu), emulated in torch ----
+#
+# `_emulate` runs the design of the CUDA kernel on the CPU: the lanes
+# split over C CTAs as `cluster_plan`'s launch splits them; round 0 from
+# each thread's own lanes; then per round barrier 1, the claims (phase
+# B), barrier 2, and one phase (A) that checks round i's claims back and
+# reads round i+1's slot, over each CTA's worklist of 16-bit codes (the
+# index of the key the CTA holds, bit 15 for a pending claim), whose
+# order the emulation shuffles; the hand-over of a cluster's worklists
+# to its first CTA once at most `hand_over` lanes are live.  It counts
+# the barriers and every write of a lane's outputs.
+
+CLAIM, LANE = 0x8000, 0x7FFF
+SIGN = -(1 << 63)
+
+
+def _claim(table, slots, keys):
+    """Unsigned 64-bit atomicMax of `keys` into table[slots]."""
+    if not slots.numel():
+        return
+    uniq, inv = torch.unique(slots, return_inverse=True)
+    best = (table[uniq] ^ SIGN).scatter_reduce(0, inv, keys ^ SIGN, "amax", include_self=True)
+    table[uniq] = best ^ SIGN
+
+
+class _Cta:
+    def __init__(self, rank, cta_lanes, extra, n):
+        self.first = rank * cta_lanes
+        self.lanes = max(0, min(cta_lanes, n - self.first))
+        self.cta_lanes = cta_lanes
+        self.key = torch.zeros(cta_lanes + extra, dtype=torch.int64)  # keys held
+        self.taken = torch.zeros(extra, dtype=torch.int64)  # global lane of each taken over
+        self.queue = torch.zeros(0, dtype=torch.int64)  # codes
+
+    def lane_of(self, held):
+        """The global lane of each key held at `held`."""
+        lane = self.first + held
+        over = held >= self.cta_lanes
+        lane[over] = self.taken[held[over] - self.cta_lanes]
+        return lane
+
+
+def _emulate(table, keys, valid, probes, ctas, hand_over=port.HAND_OVER_LANES, seed=0):
+    """The kernel's schedule under a cluster of `ctas` CTAs.  Updates
+    `table` in place; returns (table, slot, is_new, rounds, barriers)."""
+    gen = torch.Generator().manual_seed(seed)
+    cap, n = table.shape[0], keys.shape[0]
+    cta_lanes = -(-n // ctas)
+    assert cta_lanes <= port.MAX_CTA_LANES and ctas <= port.MAX_CLUSTER
+    extra = hand_over if ctas > 1 else 0
+    assert cta_lanes + extra <= LANE + 1  # codes fit 15 bits
+    slot = torch.full((n,), -7, dtype=torch.int32)
+    is_new = torch.zeros(n, dtype=torch.bool)
+    writes = torch.zeros(n, dtype=torch.int64)
+
+    def finish(g, s, nw):
+        slot[g] = s.to(torch.int32) if isinstance(s, torch.Tensor) else s
+        is_new[g] = nw
+        writes.index_add_(0, g, torch.ones_like(g))
+
+    def shuffled(q):
+        return q[torch.randperm(q.numel(), generator=gen)]
+
+    rank_ctas = [_Cta(r, cta_lanes, extra, n) for r in range(ctas)]
+    if int(probes) <= 0:
+        finish(torch.arange(n), -1, False)
+        return table, slot, is_new, 0, 0
+    barriers = 1  # after the counts are cleared
+    for cta in rank_ctas:  # A(0), from registers
+        ls = torch.arange(cta.lanes)
+        g = cta.first + ls
+        live = valid[g]
+        finish(g[~live], -1, False)
+        ls, g = ls[live], g[live]
+        cand = port.probe_hash(keys[g], cap, 0)
+        cur = table[cand]
+        hit = (cur == keys[g]) & (cur != 0)
+        finish(g[hit], cand[hit], False)
+        cta.key[ls] = keys[g]
+        stay = ~hit
+        cta.queue = shuffled(ls[stay] | torch.where(cur[stay] == 0, CLAIM, 0))
+    active, clustered = rank_ctas, ctas > 1
+    i = 0
+    while True:
+        barriers += 1  # barrier 1
+        total = sum(c.queue.numel() for c in active)
+        if total == 0:
+            barriers += clustered  # no CTA leaves while another reads its count
+            break
+        if clustered and total <= hand_over:
+            c0 = active[0]
+            at = c0.queue.numel()
+            parts = [c0.queue]
+            for c in active[1:]:
+                e = torch.arange(c.queue.numel())
+                held = cta_lanes + at - c0.queue.numel() + e
+                ls = c.queue & LANE
+                c0.key[held] = c.key[ls]
+                c0.taken[held - cta_lanes] = c.first + ls
+                parts.append(held | (c.queue & CLAIM))
+                at += c.queue.numel()
+            c0.queue = torch.cat(parts)
+            barriers += 1
+            active, clustered = [c0], False
+        for c in active:  # B(i): the claims
+            claim = c.queue[(c.queue & CLAIM) != 0] & LANE
+            k = c.key[claim]
+            _claim(table, port.probe_hash(k, cap, i), k)
+        barriers += 1  # barrier 2
+        last = i + 1 >= int(probes)
+        for c in active:  # A(i + 1): check-back of round i, read of round i+1
+            held = c.queue & LANE
+            claim = (c.queue & CLAIM) != 0
+            k, g = c.key[held], c.lane_of(held)
+            c0, c1 = port.probe_hash(k, cap, i), port.probe_hash(k, cap, i + 1)
+            back = table[c0]
+            won = claim & (back == k)
+            zero = claim & ~won & (k == 0)
+            finish(g[won], c0[won], True)
+            finish(g[zero], c0[zero], False)
+            reads = ~won & ~zero
+            if last:
+                finish(g[reads], -1, False)
+                c.queue = c.queue[:0]
+                continue
+            got = table[c1]
+            hit = reads & (got == k) & (got != 0)
+            finish(g[hit], c1[hit], False)
+            stay = reads & ~hit
+            c.queue = shuffled(held[stay] | torch.where(got[stay] == 0, CLAIM, 0))
+        if last:
+            break
+        i += 1
+    assert bool((writes == 1).all()), "every lane's outputs are written exactly once"
+    return table, slot, is_new, i + 1, barriers
+
+
+def _emulated(table, keys, valid, probes, ctas, **kw):
+    tk, slot, new, rounds, barriers = _emulate(
+        torch.from_numpy(table.view(np.int64).copy()), torch.from_numpy(keys.view(np.int64).copy()),
+        torch.from_numpy(valid.copy()), probes, ctas, **kw)
+    # two barriers a round, one to clear the counts, and at most one to
+    # end the loop and one to hand the lanes over
+    assert barriers <= 2 * rounds + 3
+    return tk.numpy().view(np.uint64), slot.numpy(), new.numpy()
+
+
+_REFS = {}
+
+
+def _refs(key, table, keys, valid, probes):
+    """The reference's Pallas kernel (interpret mode; its jnp oracle for a
+    batch of no lanes, which the interpreter cannot block) and the port's
+    plain version on one case, computed once per test process."""
+    if key not in _REFS:
+        want = (_ref_upsert(ref.fused_upsert, table, keys, valid, probes, interpret=True)
+                if keys.size else _ref_upsert(ref.fused_upsert_ref, table, keys, valid, probes))
+        _REFS[key] = want, _port_upsert(port.fused_upsert_ref, table, keys, valid, probes)
+    return _REFS[key]
+
+
+def _assert_same(got, want, what):
+    for name, g, w in zip(("table", "slot", "is_new"), got, want):
+        np.testing.assert_array_equal(g, w, err_msg=f"{what}: {name}")
+
+
+WIDTHS = [1, 2, 4, 8, 16]
+
+
+@pytest.mark.parametrize("ctas", WIDTHS)
+@pytest.mark.parametrize("probes", [32, 64, 128])
+@pytest.mark.parametrize("load", [0.0, 0.5, 0.85])
+def test_schedule_matches_pallas_and_plain(load, probes, ctas):
+    table, keys, valid = _case(int(load * 100) + probes, load)
+    pallas, plain = _refs(("case", load, probes), table, keys, valid, probes)
+    _assert_same(plain, pallas, "plain version")
+    # the kernel's hand-over, and one late enough that the cluster runs
+    # several rounds first
+    for hand_over in (port.HAND_OVER_LANES, 8):
+        _assert_same(_emulated(table, keys, valid, probes, ctas, hand_over=hand_over), pallas,
+                     f"ctas={ctas} hand_over={hand_over}")
+
+
+def _special(kind):
+    """(table, keys, valid, probes) of a corner case."""
+    rng = np.random.default_rng(11)
+    if kind == "cap7":  # no power of two, lanes dropped at the budget
+        table = np.zeros(7, np.uint64)
+        table[[1, 4]] = _distinct_keys(rng, 2)
+        return table, _distinct_keys(rng, 64), rng.random(64) >= 0.1, 8
+    table, keys, valid = _case(21, 0.5)
+    if kind == "zero_and_duplicates":  # 1,000 lanes: no multiple of a warp
+        pool = np.concatenate([[np.uint64(0)], keys[:200]])
+        return table, pool[rng.integers(0, 201, 1_000)], rng.random(1_000) >= 0.1, 64
+    if kind == "zero_loses_claim":  # key 0 and larger keys claim empty slot 0 at once
+        pool = _distinct_keys(rng, 1 << 14)
+        first = _first_slot(pool, CAP)
+        rivals = pool[first == 0][:3]
+        keys = np.concatenate([[np.uint64(0)], rivals, pool[first != 0][:60]])
+        return np.zeros(CAP, np.uint64), keys, np.ones(keys.size, bool), 8
+    if kind == "dropped":
+        table, keys, valid = _case(22, 0.85)
+        return table, keys, valid, 2
+    if kind == "all_invalid":
+        return table, keys, np.zeros_like(valid), 32
+    if kind in ("budget0", "budget1"):
+        return table, keys, valid, int(kind[-1])
+    assert kind == "no_lanes"
+    return table, keys[:0], valid[:0], 32
+
+
+SPECIALS = ["cap7", "zero_and_duplicates", "zero_loses_claim", "dropped", "all_invalid",
+            "budget0", "budget1", "no_lanes"]
+
+
+@pytest.mark.parametrize("ctas", WIDTHS)
+@pytest.mark.parametrize("kind", SPECIALS)
+def test_schedule_corner_cases_match_pallas_and_plain(kind, ctas):
+    table, keys, valid, probes = _special(kind)
+    pallas, plain = _refs(("special", kind), table, keys, valid, probes)
+    _assert_same(plain, pallas, "plain version")
+    for hand_over in (port.HAND_OVER_LANES, 4):
+        got = _emulated(table, keys, valid, probes, ctas, hand_over=hand_over)
+        _assert_same(got, pallas, f"{kind} ctas={ctas} hand_over={hand_over}")
+    if kind == "zero_and_duplicates":
+        slot, new = pallas[1], pallas[2]
+        assert (keys == 0).any() and len(np.unique(keys[valid])) < valid.sum()
+        dup = keys[valid & new]
+        assert len(np.unique(dup)) < len(dup)  # duplicates both won one slot
+    if kind == "zero_loses_claim":  # placed where a larger key won, not new
+        assert pallas[1][0] == 0 and not pallas[2][0] and pallas[0][0] != 0
+    if kind == "dropped":
+        assert (pallas[1][valid] < 0).any()
+
+
+@pytest.mark.parametrize("ctas", [1, 4, 8, 16])
+@pytest.mark.parametrize("load", [0.0, 0.5, 0.85])
+def test_schedule_at_the_node_sweeps_width(load, ctas):
+    """16,384 lanes, the main path's node sweep, into a 2^16-slot table:
+    the cluster runs its rounds before handing over, as on the card."""
+    rng = np.random.default_rng(int(load * 100) + 5)
+    cap, n = 1 << 16, 1 << 14
+    pool = _distinct_keys(rng, int(0.85 * cap) + n)
+    m = int(load * cap)
+    table = np.zeros(cap, np.uint64)
+    if m:
+        table = _ref_upsert(ref.fused_upsert_ref, table, pool[:m], np.ones(m, bool), 1 << 12)[0]
+    keys = np.concatenate([rng.choice(pool[:m], int(0.3 * n), replace=False) if m else pool[:0],
+                           pool[-(n - (int(0.3 * n) if m else 0)):]])[rng.permutation(n)]
+    valid = rng.random(n) >= 0.1
+    want = _ref_upsert(ref.fused_upsert_ref, table, keys, valid, 128)
+    _assert_same(_port_upsert(port.fused_upsert_ref, table, keys, valid, 128), want, "plain")
+    _assert_same(_emulated(table, keys, valid, 128, ctas), want, f"ctas={ctas}")
+
+
+@pytest.mark.parametrize("n", [0, 1, 64, 1_000, 16_384, 16_385, 1 << 17, port.MAX_LANES])
+def test_cluster_plan_fits_the_kernel(n):
+    ctas = port.cluster_plan(n)
+    assert ctas in WIDTHS and -(-n // ctas) <= port.MAX_CTA_LANES
+    # one CTA below CLUSTER_LANES, else PLAN_CTAS unless more must hold n
+    want = 1 if n < port.CLUSTER_LANES else max(port.PLAN_CTAS, 1 << max(
+        0, (-(-n // port.MAX_CTA_LANES) - 1).bit_length()))
+    assert ctas == want
+
+
+def test_cluster_plan_refuses_more_lanes_than_the_kernel_takes():
+    with pytest.raises(ValueError):
+        port.cluster_plan(port.MAX_LANES + 1)
