@@ -27,19 +27,28 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      busy time, the device's idle share) and K1's device ms a launch;
   4. runs the uncontrolled loop (seed 0, 40 ticks, 2^12/2^14 store) on
      the card and on the host and requires equal stores and reports;
-  5. holds the sketch-scatter kernel against its plain version on the
-     card, bit for bit, at the query path's shapes with uniform and
-     Zipf-skewed keys, and times the kernel, the plain version and the
-     three `index_add_` calls that are the closest library equivalent;
+  5. holds the sketch scatter (K3) against its plain versions on the
+     card, bit for bit, through both entries (`sketch_scatter` on hash
+     coordinates, `sketch_absorb` on keys, hashed in the kernel) under
+     every plan its kernel takes (direct or private degree rows, on the
+     planned grid, one CTA and a CTA a warp), at the query path's shapes
+     (D=4, W=256 and 512) and the paths' 64 to 8,192 lanes, with
+     uniform, Zipf-skewed and single-hub keys, and at corner cases (one
+     lane, all lanes invalid, W=1,000, every key with bit 63 set); times both entries under the plan,
+     their plain versions and the three `index_add_` calls that are the
+     closest library equivalent beside each bound and an empty launch,
+     and counts the device kernels of one `sketch_update` call in a
+     fresh process;
   6. drives the query path, `repro_torch.launch.query.run`, for 120
      ticks in live mode at the default deployment (D=4, W=512, a 2^20-
      node, 2^21-edge store), with the launch counters set to 0 just
-     before and read just after;
+     before and read just after, and counts K3's launches by lane count;
   7. runs that query path again, its first 40 ticks, with spans on and
-     under torch.profiler;
+     under torch.profiler, and prints K3's device ms;
   8. runs the uncontrolled query loop (seed 0, 40 ticks, 2^12/2^14
      store, W=512) on the card and on the host and requires equal
-     stores, sketches, snapshots and query answers;
+     stores, sketches, snapshots and query answers (the card's sketches
+     through the fused K3 entry);
   9. holds the traffic-id sampler kernel against its plain version on
      the card, bit for bit, for every registry scenario at burst levels
      0 and 1, at the workload path's 2,048-record block and at 65,536
@@ -90,7 +99,7 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      with K1's launches by lane count;
  18. drives the workload CLI's own example, `launch.workload --scenario
      flash_crowd --shards 4 --sketch-control`, at its default deployment
-     (240 ticks), the same way;
+     (240 ticks), the same way, and counts K3's launches by lane count;
  19. runs the sharded loop (2 shards, 2^12/2^14 store, 40 ticks,
      `--dict-compress`) on the card, and on the host replaying the card's
      per-shard decisions: equal stores, dictionaries and reports;
@@ -125,7 +134,10 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      kernels (three a call);
  25. serves one set of smoke-size float32 weights on the card and on the
      host, both archs (the dense prefill on the chunked branch): logits
-     within 1e-4 at every step and equal greedy ids.
+     within 1e-4 at every step and equal greedy ids;
+ 26. runs phase 18's deployment from `run_scenario`'s own builder, ticks
+     40 to 79 with spans on and under torch.profiler, and prints K3's
+     device ms over them.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
 JSON line.  It exits non-zero without a CUDA device or without the port
@@ -167,7 +179,13 @@ KERNEL_REPS, PLAIN_REPS = 20, 5
 SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's clock: covers a launch's host work
 MAIN_TICKS = 120
 SKETCH_SHAPES = ((4, 256), (4, 512))  # (D, W): the CLI's dryrun and default widths
-SKETCH_LANES = (1_024, 8_192)  # edge-table caps of a sketch update on the query path
+# the edge-table caps of a sketch update on the paths: max(64, the next
+# power of two of the edges), at most 8,192 (api/stages.py, query/stage.py)
+SKETCH_LANES = (64, 512, 2_048, 8_192)
+SKETCH_KEYS = ("uniform", "zipf", "hub")
+SKETCH_UPDATE_LANES = (64, 512, 8_192)  # device kernels a sketch_update call
+# (fn, args) of one sketch_update call, for _kernels_a_call
+SKETCH_UPDATE_CALL = ("QS.sketch_update", "cs._sketch_update_args(torch, n)")
 ZIPF_A = 1.3
 TRAFFIC_LANES = (2_048, 65_536)  # the workload source's block, and a large one
 TRAFFIC_SEEDS = ((0, 0), (7, 12_345), (0, 2**32 - 5_000))  # (seed, ctr0), the last wraps
@@ -443,35 +461,51 @@ def kernel_vs_plain(torch, dev):
 
 
 @contextlib.contextmanager
-def k1_lanes():
-    """Counts K1's launches by lane count inside the block: wraps
-    `upsert.launch`, which `fused_upsert` looks up at each call."""
-    from repro_torch.kernels import upsert
+def _launch_lanes(module, lanes_of):
+    """Counts a kernel's launches by lane count inside the block: wraps
+    `module.launch`, which the kernel's entries look up at each call;
+    `lanes_of(*args)` gives a call's lanes."""
+    hist, real = collections.Counter(), module.launch
 
-    hist, real = collections.Counter(), upsert.launch
+    def counted(*args):
+        hist[lanes_of(*args)] += 1
+        return real(*args)
 
-    def counted(table, keys, *args):
-        hist[keys.shape[0]] += 1
-        return real(table, keys, *args)
-
-    upsert.launch = counted
+    module.launch = counted
     try:
         yield hist
     finally:
-        upsert.launch = real
+        module.launch = real
 
 
-def k1_device(label, device, hist):
-    """Prints K1's device ms over a profiled run (`_profiled`'s events)
-    beside its launches by lane count."""
-    k1 = [(name, ms, c) for name, ms, c in device if "fused_upsert" in name]
-    ms, count = sum(ms for _, ms, _ in k1), sum(c for _, _, c in k1)
-    print(f"{label} K1 device: " + json.dumps({
-        "device_ms": ms, "device_kernels": count, "launches": sum(hist.values()),
+def k1_lanes():
+    """K1's launches by lane count (`upsert.launch(table, keys, ...)`)."""
+    from repro_torch.kernels import upsert
+
+    return _launch_lanes(upsert, lambda table, keys, *rest: keys.shape[0])
+
+
+def k3_lanes():
+    """K3's launches by lane count, both entries (`sketch.launch(edge_w,
+    out_deg, in_deg, a, b, cnt, ...)`)."""
+    from repro_torch.kernels import sketch
+
+    return _launch_lanes(sketch, lambda *args: args[5].shape[0])
+
+
+def kernel_device(label, kernel, match, device, hist=None):
+    """Prints a kernel's device ms over a profiled run (`_profiled`'s
+    events whose name holds `match`), beside its launches by lane count
+    where `hist` counted them."""
+    own = [(name, ms, c) for name, ms, c in device if match in name]
+    ms, count = sum(ms for _, ms, _ in own), sum(c for _, _, c in own)
+    print(f"{label} {kernel} device: " + json.dumps({
+        "device_ms": ms, "device_kernels": count,
         "device_ms_per_launch": ms / count if count else None,
         "share_of_device_busy": ms / sum(m for _, m, _ in device) if device else None,
-        "lanes": dict(sorted(hist.items())),
-        "kernels": [{"name": name[:80], "ms": m, "count": c} for name, m, c in k1]}),
+        **({"launches": sum(hist.values()), "lanes": dict(sorted(hist.items()))}
+           if hist is not None else {}),
+        "kernels": [{"name": name[:80], "ms": m, "count": c} for name, m, c in own]}),
         flush=True)
 
 
@@ -556,7 +590,7 @@ def tick_breakdown(torch):
     pipe.sink.ingestor.telemetry = reg
     with k1_lanes() as hist:
         device = _profiled(torch, "breakdown", reg, lambda: pipe.run(max_ticks=MAIN_TICKS))
-    k1_device("breakdown", device, hist)
+    kernel_device("breakdown", "K1", "fused_upsert", device, hist)
 
 
 def cuda_vs_cpu(torch):
@@ -589,41 +623,111 @@ def cuda_vs_cpu(torch):
 
 
 def _sketch_keys(rng, n, dist):
-    """n uint64 node keys (int64 bits): uniform, or Zipf-skewed ranks
-    over a pool of 2^17 ids, which sends many lanes to the same cells."""
+    """n uint64 node keys (int64 bits): uniform; Zipf-skewed ranks over a
+    pool of 2^17 ids, which sends many lanes to the same cells; or "hub",
+    one key on every lane."""
     if dist == "uniform":
         return rng.integers(1, 2**64 - 1, size=n, dtype=np.uint64).view(np.int64)
+    if dist == "hub":
+        return np.full(n, _random_keys(rng, 1)[0])
     pool = _random_keys(rng, 1 << 17)
     return pool[np.minimum(rng.zipf(ZIPF_A, size=n), pool.size) - 1]
 
 
-def sketch_vs_plain(torch, dev):
-    """Phase 5: sketch_scatter kernel vs its plain version, bit-equal,
-    and timed beside the three `index_add_` calls of the library."""
-    from repro_torch.kernels.sketch import sketch_scatter, sketch_scatter_ref
-    from repro_torch.query.sketch import node_hash
+def sketch_batch(torch, dev, rng, D, W, n, dist):
+    """One sketch update's operands on `dev`: ((edge_w, out_deg, in_deg),
+    src, dst, cnt).  src from `dist` (a hub is a source: every lane one
+    out-degree cell), dst Zipf-skewed unless uniform, counts 1 to 3 with
+    about 10% zeros; the arrays start non-zero, as in a running sketch."""
+    src = torch.from_numpy(_sketch_keys(rng, n, dist)).to(dev)
+    dst = torch.from_numpy(_sketch_keys(rng, n, "uniform" if dist == "uniform" else "zipf"))
+    cnt = rng.integers(1, 4, size=n).astype(np.int32)
+    cnt[rng.random(n) < 0.1] = 0
+    base = (torch.randint(0, 100, (D, W, W), dtype=torch.int32, device=dev),
+            torch.randint(0, 100, (D, W), dtype=torch.int32, device=dev),
+            torch.randint(0, 100, (D, W), dtype=torch.int32, device=dev))
+    return base, src, dst.to(dev), torch.from_numpy(cnt).to(dev)
 
+
+def sketch_plans(n, D, W):
+    """Every plan choice of K3's kernel at n lanes: direct or private
+    degree rows (private only where they fit), on the planned grid, on
+    one CTA of 1,024 threads and on a CTA a warp."""
+    from repro_torch.kernels import sketch as SK
+
+    planned = SK.launch_plan(n, D, W)
+    grids = sorted({(planned.ctas, planned.threads), (1, 1_024), (-(-n // 32), 32)})
+    privs = (False, True) if SK.rows_fit(D, W) else (False,)
+    return [SK.Plan(c, t, p) for c, t in grids for p in privs]
+
+
+def sketch_hold(torch, label, base, src, dst, cnt):
+    """Holds both K3 entries to their plain versions, bit for bit:
+    through the public wrappers, then under every plan of
+    `sketch_plans`; returns (r, c, the largest error)."""
+    from repro_torch.kernels import sketch as SK
+
+    D, W = base[1].shape
+    n = cnt.shape[0]
+    r, c = SK.node_hash(src, D, W), SK.node_hash(dst, D, W)
+    wants = {False: SK.sketch_scatter_ref(*(b.clone() for b in base), r, c, cnt),
+             True: SK.sketch_absorb_ref(*(b.clone() for b in base), src, dst, cnt)}
+    if not all(torch.equal(x, y) for x, y in zip(*wants.values())):
+        raise AssertionError(f"sketch_absorb_ref != sketch_scatter_ref at {label}")
+    # the public wrappers, under the plan they pick
+    for fused, entry, (a, b) in ((False, SK.sketch_scatter, (r, c)),
+                                 (True, SK.sketch_absorb, (src, dst))):
+        got = entry(*(x.clone() for x in base), a, b, cnt)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, wants[fused])):
+            raise AssertionError(f"K3 {entry.__name__} != plain at {label}")
+    worst = 0
+    for plan in sketch_plans(n, D, W):
+        for fused, (a, b) in ((False, (r, c)), (True, (src, dst))):
+            got = SK.launch(*(x.clone() for x in base), a, b, cnt, fused, plan)
+            torch.cuda.synchronize()
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, wants[fused]))
+            worst = max(worst, err)
+            if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, wants[fused])):
+                raise AssertionError(f"K3 {'sketch_absorb' if fused else 'sketch_scatter'} "
+                                     f"!= plain at {label} under {plan}: max_abs_err={err}")
+    return r, c, worst
+
+
+def _sketch_update_args(torch, n):
+    """(sketch, edge table) for one `sketch_update` call at n lanes on
+    the card: the query path's widths (D=4, W=512, 64 heavy-hitter
+    slots), Zipf ids (`SKETCH_UPDATE_CALL`)."""
+    from repro_torch.core.edge_table import from_raw_batch
+    from repro_torch.core.transform import RawEdgeBatch
+    from repro_torch.query.sketch import init_sketch
+
+    rng = np.random.default_rng(5)
+    src, dst = (_sketch_keys(rng, n, "zipf").view(np.uint64) for _ in range(2))
+    z = np.zeros(n, np.int32)
+    et = from_raw_batch(RawEdgeBatch(src, dst, rng.integers(0, 3, n).astype(np.int32), z, z, n),
+                        n, device="cuda")
+    return init_sketch(depth=4, width=512, hh_slots=64, device="cuda"), et
+
+
+def sketch_vs_plain(torch, dev):
+    """Phase 5: K3 through both entries against its plain versions, bit
+    for bit under every plan, at every shape, size and key mix and at
+    the corner cases; then each entry under its plan timed beside its
+    plain version, the library's three `index_add_`, its bound and an
+    empty launch; and the device kernels of one `sketch_update` call."""
+    from repro_torch.kernels.sketch import (
+        launch_plan, sketch_absorb, sketch_absorb_ref, sketch_scatter, sketch_scatter_ref)
+
+    floor_ms = _time_ms(torch, lambda: torch.cuda._sleep(0), (), (), KERNEL_REPS)
+    print(f"sketch: an empty launch (torch.cuda._sleep(0)) takes {floor_ms} ms", flush=True)
     rng = np.random.default_rng(1)
     rows = []
     for D, W in SKETCH_SHAPES:
         for n in SKETCH_LANES:
-            for dist in ("uniform", "zipf"):
-                keys = [torch.from_numpy(_sketch_keys(rng, n, dist)).to(dev) for _ in range(2)]
-                r, c = (node_hash(k, D, W) for k in keys)
-                cnt_np = rng.integers(1, 4, size=n).astype(np.int32)
-                cnt_np[rng.random(n) < 0.1] = 0
-                cnt = torch.from_numpy(cnt_np).to(dev)
-                # the arrays start non-zero, as in a running sketch
-                base = (torch.randint(0, 100, (D, W, W), dtype=torch.int32, device=dev),
-                        torch.randint(0, 100, (D, W), dtype=torch.int32, device=dev),
-                        torch.randint(0, 100, (D, W), dtype=torch.int32, device=dev))
-                got = sketch_scatter(*(b.clone() for b in base), r, c, cnt)
-                want = sketch_scatter_ref(*(b.clone() for b in base), r, c, cnt)
-                torch.cuda.synchronize()
-                err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-                if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    raise AssertionError(f"sketch_scatter kernel != plain: D={D} W={W} "
-                                         f"n={n} {dist} max_abs_err={err}")
+            for dist in SKETCH_KEYS:
+                base, src, dst, cnt = sketch_batch(torch, dev, rng, D, W, n, dist)
+                r, c, err = sketch_hold(torch, f"D={D} W={W} n={n} {dist}", base, src, dst, cnt)
                 # library: the three index_add_ calls on precomputed flat indices
                 depth = torch.arange(D, device=dev).unsqueeze(1)
                 rl, cl = r.long(), c.long()
@@ -636,25 +740,57 @@ def sketch_vs_plain(torch, dev):
                     od.view(-1).index_add_(0, flat[1], vals)
                     idg.view(-1).index_add_(0, flat[2], vals)
 
-                # least bytes: r, c and cnt read once, and 4 B read plus
-                # 4 B written per distinct cell a counted lane touches
+                # least bytes: every lane's count read once, the coordinates
+                # (or keys) of the counted lanes only (a lane of count 0
+                # adds nothing), and 4 B read plus 4 B written per distinct
+                # cell a counted lane touches
                 live = (cnt != 0).expand(D, -1).reshape(-1)
                 cells = sum(int(torch.unique(f[live]).numel()) for f in flat)
-                nbytes = 2 * D * n * 4 + n * 4 + 8 * cells
+                counted = int((cnt != 0).sum())
+                coords_bytes = 4 * n + 2 * D * 4 * counted + 8 * cells
+                keys_bytes = 4 * n + (8 + 8) * counted + 8 * cells
                 rows.append({
                     "depth": D, "width": W, "lanes": n, "keys": dist,
-                    "counted_lanes": int((cnt != 0).sum()), "cells": cells,
-                    "max_abs_err": err,
+                    "counted_lanes": counted, "cells": cells,
+                    "plan": launch_plan(n, D, W)._asdict(), "max_abs_err": err,
                     "ms": _time_ms(torch, sketch_scatter, base, (r, c, cnt), KERNEL_REPS),
                     "plain_ms": _time_ms(torch, sketch_scatter_ref, base, (r, c, cnt),
                                          KERNEL_REPS),
                     "library_ms": _time_ms(torch, library, base, (), KERNEL_REPS),
-                    "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+                    "bound_ms": coords_bytes / H100_BYTES_PER_S * 1e3,
+                    "absorb_ms": _time_ms(torch, sketch_absorb, base, (src, dst, cnt),
+                                          KERNEL_REPS),
+                    "absorb_plain_ms": _time_ms(torch, sketch_absorb_ref, base,
+                                                (src, dst, cnt), KERNEL_REPS),
+                    "absorb_bound_ms": keys_bytes / H100_BYTES_PER_S * 1e3,
+                    "launch_floor_ms": floor_ms,
                 })
                 print("sketch", json.dumps(rows[-1]), flush=True)
-    print("sketch_scatter kernel == plain bit for bit (tolerance 0) at all "
-          f"{len(rows)} shapes", flush=True)
-    return rows
+    # corner cases, each under every plan and through both entries
+    corners = 0
+    for label, D, W, n, dist in (("one lane", 4, 512, 1, "uniform"),
+                                 ("all lanes invalid", 4, 512, 512, "zipf"),
+                                 ("W=1,000", 4, 1_000, 2_048, "zipf"),
+                                 ("W=1,000 hub", 4, 1_000, 512, "hub"),
+                                 ("bit 63 on every key", 4, 512, 512, "uniform")):
+        base, src, dst, cnt = sketch_batch(torch, dev, rng, D, W, n, dist)
+        if label == "one lane":
+            src.zero_()  # key 0, counted
+            cnt.fill_(3)
+        if label == "all lanes invalid":
+            cnt.zero_()
+        if label == "bit 63 on every key":
+            src |= -(1 << 63)
+            dst |= -(1 << 63)
+            src[:2] = -1  # the all-ones key
+        sketch_hold(torch, label, base, src, dst, cnt)
+        corners += 1
+    kernels = _kernels_a_call(*SKETCH_UPDATE_CALL, SKETCH_UPDATE_LANES)
+    print("sketch_update device kernels a call (fresh process): " + json.dumps(kernels),
+          flush=True)
+    print("K3 (sketch_scatter and sketch_absorb) == plain bit for bit (tolerance 0) at all "
+          f"{len(rows)} shapes and {corners} corner cases, under every plan", flush=True)
+    return rows, kernels
 
 
 def query_path(torch):
@@ -664,8 +800,9 @@ def query_path(torch):
 
     build.launches.clear()
     t0 = time.perf_counter()
-    out = query.run(QUERY_ARGV)
-    torch.cuda.synchronize()
+    with k3_lanes() as hist:
+        out = query.run(QUERY_ARGV)
+        torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(build.launches)
     qsink = out.pipe.sink
@@ -690,21 +827,23 @@ def query_path(torch):
           f"delta_applies={m.delta_applies} "
           f"filter_sketch_updates={launches['sketch_scatter'] - qsink.commits} "
           f"launches={launches}", flush=True)
+    print("query path K3 lanes: " + json.dumps(dict(sorted(hist.items()))), flush=True)
     return launches
 
 
 def query_breakdown(torch):
     """Phase 7: where a tick of the query path goes (phase 6's run, cut
     to its first PROFILED_TICKS ticks, with spans on and under
-    torch.profiler)."""
+    torch.profiler), and K3's device ms."""
     from repro_torch.launch import query
     from repro_torch.telemetry.spans import TelemetryRegistry
 
     reg = TelemetryRegistry(enabled=True)
     argv = QUERY_ARGV[:]
     argv[argv.index("--ticks") + 1] = str(PROFILED_TICKS)
-    _profiled(torch, "query breakdown", reg, lambda: query.run(argv, telemetry=reg),
-              ticks=PROFILED_TICKS)
+    device = _profiled(torch, "query breakdown", reg, lambda: query.run(argv, telemetry=reg),
+                       ticks=PROFILED_TICKS)
+    kernel_device("query breakdown", "K3", "sketch_scatter", device)
 
 
 def query_cuda_vs_cpu(torch):
@@ -1111,14 +1250,15 @@ def _device_kernels(torch, fn, args):
 def _kernels_a_call(fn, args, sizes):
     """{n: device kernels of one call of `fn(*args)`}, counted by
     `_device_kernels` in a fresh process (`fn` and `args` are Python
-    expressions there, `args` of n, with `cs` this module, `ops` and
-    `PM` the kernel modules).  In this process, after the profiled
-    phases, a window of one call read no device event at all (where a
-    fresh process reads every kernel the call launches); the launches
-    depend on n alone, not on the data."""
+    expressions there, `args` of n, with `cs` this module, `ops`, `PM`
+    and `QS` the kernel, pattern-miner and sketch modules).  In this
+    process, after the profiled phases, a window of one call read no
+    device event at all (where a fresh process reads every kernel the
+    call launches); the launches depend on n alone, not on the data."""
     code = ("import json, sys, torch; import numpy as np; sys.path.insert(0, sys.argv[1]); "
             "import chip_smoke as cs; "
             "from repro_torch.kernels import ops, pattern_mine as PM; "
+            "from repro_torch.query import sketch as QS; "
             f"print(json.dumps({{n: cs._device_kernels(torch, {fn}, {args}) "
             "for n in map(int, sys.argv[2:])}))")
     out = subprocess.run([sys.executable, "-c", code, str(ROOT), *map(str, sizes)],
@@ -1345,7 +1485,7 @@ def sharded_breakdown(torch):
         "share_of_device_busy": k5_ms / sum(ms for _, ms, _ in device) if device else None,
         "kernels": [{"name": name[:80], "ms": ms, "count": c} for name, ms, c in k5]}),
         flush=True)
-    k1_device("sharded", device, hist)
+    kernel_device("sharded", "K1", "fused_upsert", device, hist)
 
 
 def sharded_workload_path(torch):
@@ -1365,8 +1505,9 @@ def sharded_workload_path(torch):
 
     build.launches.clear()
     t0 = time.perf_counter()
-    code, rep = workload.run(SHARDED_WORKLOAD_ARGV, on_event=count)
-    torch.cuda.synchronize()
+    with k3_lanes() as hist:
+        code, rep = workload.run(SHARDED_WORKLOAD_ARGV, on_event=count)
+        torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(build.launches)
     want = {"fused_upsert": 2 * seen["commits"],  # the node and edge sweeps
@@ -1384,7 +1525,38 @@ def sharded_workload_path(torch):
         "action_counts": rep.action_counts, "commits": seen["commits"], "wall_s": wall_s,
         "records_per_wall_s": rep.total_records / wall_s,
         "wall_ms_per_tick": wall_s * 1e3 / rep.ticks, "launches": launches}), flush=True)
+    print("sharded workload path K3 lanes: " + json.dumps(dict(sorted(hist.items()))),
+          flush=True)
     return launches
+
+
+def sharded_workload_breakdown(torch):
+    """Phase 26: where a tick of the sharded workload path goes.  Phase
+    18's deployment from `run_scenario`'s own builder: PROFILED_TICKS
+    ticks run first with spans off, then the next PROFILED_TICKS with
+    spans on and under torch.profiler; K3's device ms over them."""
+    import itertools
+
+    from repro_torch.api import MetricsHub
+    from repro_torch.telemetry.spans import TelemetryRegistry
+    from repro_torch.workloads import get_scenario, scenario_builder
+
+    reg = TelemetryRegistry(enabled=False)
+    b, _, _ = scenario_builder(get_scenario("flash_crowd"), sketch_guided=True, shards=SHARDS,
+                               device="cuda")
+    pipe = b.with_metrics(MetricsHub(telemetry=reg)).build()
+    for part in (pipe.transform, pipe.sink.ingestor, pipe.sink):
+        part.telemetry = reg
+    ticks = pipe.source.ticks()
+    pipe.run(itertools.islice(ticks, PROFILED_TICKS), max_ticks=PROFILED_TICKS)
+    reg.enabled = True
+    label = (f"sharded workload breakdown (ticks {PROFILED_TICKS} to "
+             f"{2 * PROFILED_TICKS - 1})")
+    device = _profiled(torch, label, reg,
+                       lambda: pipe.run(itertools.islice(ticks, PROFILED_TICKS),
+                                        max_ticks=PROFILED_TICKS),
+                       ticks=PROFILED_TICKS)
+    kernel_device("sharded workload breakdown", "K3", "sketch_scatter", device)
 
 
 # beta_e, in hold and throttle rows, is the controller's own float32 RLS
@@ -1921,7 +2093,7 @@ def main():
     launches = phase(2, main_path, torch)
     phase(3, tick_breakdown, torch)
     phase(4, cuda_vs_cpu, torch)
-    sketch_rows = phase(5, sketch_vs_plain, torch, dev)
+    sketch_rows, update_kernels = phase(5, sketch_vs_plain, torch, dev)
     query_launches = phase(6, query_path, torch)
     phase(7, query_breakdown, torch)
     phase(8, query_cuda_vs_cpu, torch)
@@ -1942,6 +2114,7 @@ def main():
     phase(23, serve_default, torch)
     _, ssm_launches, k8_prefill_ms = phase(24, serve_ssm, torch)
     phase(25, serve_cuda_vs_cpu, torch)
+    phase(26, sharded_workload_breakdown, torch)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["lanes"] == NODE_SWEEP[2]
@@ -1980,6 +2153,16 @@ def main():
         "ms": sref["ms"], "plain_ms": sref["plain_ms"], "bound_ms": sref["bound_ms"],
         "bound_by": "bytes", "library_ms": sref["library_ms"],
         "library": "three index_add_ calls",
+        "entries": [{
+            "name": "sketch_scatter", "takes": "hash coordinates r, c (the Pallas kernel's)",
+            "ms": sref["ms"], "plain_ms": sref["plain_ms"], "bound_ms": sref["bound_ms"],
+            "library_ms": sref["library_ms"]}, {
+            "name": "sketch_absorb", "takes": "src, dst key bits, hashed in the kernel",
+            "ms": sref["absorb_ms"], "plain_ms": sref["absorb_plain_ms"],
+            "bound_ms": sref["absorb_bound_ms"], "library_ms": None,
+            "library": "none: no single PyTorch call hashes and scatters"}],
+        "launch_floor_ms": sref["launch_floor_ms"], "plan": sref["plan"],
+        "sketch_update_device_kernels": update_kernels,
         "shape": {k: sref[k] for k in ("depth", "width", "lanes", "keys")},
     }, {
         "name": "traffic_ids", "route": "cuda",

@@ -15,13 +15,13 @@ from repro_torch.kernels.edge_dedup import sort_dedup
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.pattern_mine import pattern_mine
 from repro_torch.kernels.sampler import traffic_ids
-from repro_torch.kernels.sketch import sketch_scatter
+from repro_torch.kernels.sketch import sketch_absorb, sketch_scatter
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.upsert import fused_upsert
 
 __all__ = ["bloom_build", "bloom_diversity", "bloom_probe", "dedup_sorted_counts",
-           "flash_attention", "fused_upsert", "pattern_mine", "sketch_scatter", "sort_dedup",
-           "ssd_scan", "traffic_ids"]
+           "flash_attention", "fused_upsert", "pattern_mine", "sketch_absorb", "sketch_scatter",
+           "sort_dedup", "ssd_scan", "traffic_ids"]
 
 
 def dedup_sorted_counts(sorted_keys: torch.Tensor,

@@ -15,13 +15,12 @@ and top-k queries are answered live without touching the store:
     largest survive.
 
 One update absorbs one compressed `EdgeTable`, the batch the store
-commits.  The scatter goes through `kernels.ops.sketch_scatter`: the
-hand-written kernel on the card, the plain version on the CPU.
+commits.  Its hashing and scatter go through `kernels.ops.sketch_absorb`:
+one launch of the hand-written kernel on the card, the plain version
+(`node_hash` twice, then `sketch_scatter_ref`) on the CPU.
 
-Keys are int64 tensors holding uint64 bits.  The hash is uint32
-arithmetic, carried in int64 and masked to 32 bits after every add and
-multiply (a product of two 32-bit values may wrap past 2^63, but its low
-32 bits stay right).
+Keys are int64 tensors holding uint64 bits; `node_hash` (from
+`kernels.sketch`) hashes them in uint32 arithmetic carried in int64.
 """
 from __future__ import annotations
 
@@ -34,14 +33,13 @@ import torch
 from repro_torch.core import compression as C
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
-from repro_torch.kernels.sketch import sketch_scatter_ref
+from repro_torch.kernels.sketch import node_hash, sketch_scatter_ref
 
 __all__ = [
     "GraphSketch", "init_sketch", "node_hash", "sketch_scatter_ref", "sketch_update",
     "sketch_edge_weight", "sketch_degree", "sketch_heavy_hitters", "sketch_error_bound",
 ]
 
-_M32 = 0xFFFFFFFF
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 
 
@@ -84,22 +82,6 @@ def init_sketch(depth: int = 4, width: int = 256, hh_slots: int = 64,
         hh_counts=z((hh_slots,), torch.int32),
         n_updates=z((), torch.int32),
     )
-
-
-# ---------------------------------------------------------------------------
-# hashing: D independent rounds -> [0, W)
-# ---------------------------------------------------------------------------
-
-
-def _fold32(keys: torch.Tensor) -> torch.Tensor:
-    """uint32(key ^ (key >> 32)) of uint64 key bits, as int64."""
-    return (keys ^ C.lsr(keys, 32)) & _M32
-
-
-def node_hash(keys: torch.Tensor, depth: int, width: int) -> torch.Tensor:
-    """(D, n) int32 hash coordinates, one independent row per depth."""
-    k32 = _fold32(keys)
-    return torch.stack([(C.hash_round(k32, d) % width).to(torch.int32) for d in range(depth)])
 
 
 # ---------------------------------------------------------------------------
@@ -155,10 +137,9 @@ def sketch_update(sketch: GraphSketch, et) -> GraphSketch:
     count arrays, so a sketch the caller still holds is unchanged."""
     D, W = sketch.depth, sketch.width
     cnt = torch.where(et.edge_valid, et.count, torch.zeros_like(et.count)).to(torch.int32)
-    r = node_hash(et.src, D, W)
-    c = node_hash(et.dst, D, W)
-    ew, od, idg = ops.sketch_scatter(sketch.edge_w.clone(), sketch.out_deg.clone(),
-                                     sketch.in_deg.clone(), r, c, cnt.contiguous())
+    ew, od, idg = ops.sketch_absorb(sketch.edge_w.clone(), sketch.out_deg.clone(),
+                                    sketch.in_deg.clone(), et.src.contiguous(),
+                                    et.dst.contiguous(), cnt.contiguous())
 
     # heavy hitters: this batch's (deduplicated) nodes compete by their
     # post-update CMS degree estimate

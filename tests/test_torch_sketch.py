@@ -207,3 +207,160 @@ def test_sketch_update_leaves_a_held_sketch_unchanged():
     assert int(new.n_updates) == 2 * int(old.n_updates) > 0
     for name, a in convert.sketch_to_numpy(old).items():
         np.testing.assert_array_equal(a, before[name], err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the fused entry (keys in, hashed in the kernel) and the launch plan
+# ---------------------------------------------------------------------------
+
+
+def _absorb_batch(seed, n, width, dist="uniform", depth=D):
+    """(edge_w, out_deg, in_deg, src, dst, cnt) as numpy: a running
+    sketch's arrays, keys with bit 63 set, key 0 and the all-ones key,
+    zero counts and invalid lanes (count 0, as `sketch_update` masks
+    them); "zipf" draws ranks over a pool of ids, "hub" gives every
+    lane one src."""
+    rng = np.random.default_rng(seed)
+    if dist == "zipf":
+        pool = _keys(rng, 4096)
+        src, dst = (pool[np.minimum(rng.zipf(1.3, n), pool.size) - 1] for _ in range(2))
+    else:
+        src, dst = _keys(rng, n), _keys(rng, n)
+        if dist == "hub":
+            src[:] = src[0]
+    src[:3], dst[:3] = [0, 2**64 - 1, 2**63][: min(n, 3)], [2**63 + 9, 0, 7][: min(n, 3)]
+    cnt = rng.integers(1, 5, size=n).astype(np.int32)
+    cnt[rng.random(n) < 0.1] = 0
+    cnt[n - n // 8:] = 0  # the padded tail of an edge table
+    return (rng.integers(0, 50, size=(depth, width, width), dtype=np.int32),
+            rng.integers(0, 50, size=(depth, width), dtype=np.int32),
+            rng.integers(0, 50, size=(depth, width), dtype=np.int32), src, dst, cnt)
+
+
+def test_absorb_plain_version_matches_reference():
+    ew, od, idg, src, dst, cnt = _absorb_batch(11, BATCH, W)
+    assert (src >> np.uint64(63)).any() and (src == 0).any() and (cnt == 0).any()
+    with jax.enable_x64(True):
+        k = (jnp.asarray(src), jnp.asarray(dst))
+        want = RQ.sketch_scatter_ref(jnp.asarray(ew), jnp.asarray(od), jnp.asarray(idg),
+                                     RQ.node_hash(k[0], D, W), RQ.node_hash(k[1], D, W),
+                                     jnp.asarray(cnt))
+        want = [np.asarray(w) for w in want]
+    launches = dict(build.launches)
+    for fn in (PK.sketch_absorb_ref, ops.sketch_absorb):
+        got = fn(_t(ew.copy()), _t(od.copy()), _t(idg.copy()), _kt(src), _kt(dst), _t(cnt))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+    assert dict(build.launches) == launches  # CPU tensors never launch the kernel
+
+
+def test_absorb_wrapper_checks_its_operands():
+    Dp, Wp, n = 2, 8, 4
+    z = lambda *s: torch.zeros(s, dtype=torch.int32)
+    k = lambda m=n: torch.zeros(m, dtype=torch.int64)
+    sk = (z(Dp, Wp, Wp), z(Dp, Wp), z(Dp, Wp))
+    with pytest.raises(TypeError):  # keys as int32 coordinates
+        ops.sketch_absorb(*sk, k().int(), k().int(), z(n))
+    with pytest.raises(TypeError):  # counts as int64
+        ops.sketch_absorb(*sk, k(), k(), z(n).long())
+    with pytest.raises(ValueError):  # src one lane longer than cnt
+        ops.sketch_absorb(*sk, k(n + 1), k(), z(n))
+    with pytest.raises(ValueError):  # (D, n) coordinates where keys belong
+        ops.sketch_absorb(*sk, k().expand(Dp, n).contiguous(), k(), z(n))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sketch_absorb(*sk, k(2 * n)[::2], k(), z(n))
+    with pytest.raises(ValueError, match="one device"):
+        ops.sketch_absorb(*sk, k().to("meta"), k(), z(n))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.sketch_absorb(*(t.to("meta") for t in (*sk, k(), k(), z(n))))
+
+
+PLAN_LANES = (1, 2, 31, 32, 33, 63, 64, 100, 256, 512, 1_000, 1_024, 1_025, 2_048, 4_096,
+              8_192, 10_000, 16_384, 65_535, 65_536)
+PLAN_WIDTHS = (128, 256, 512, 1_000, 4_096)
+
+
+def _cta_lanes(n, plan, cta):
+    """The lanes CTA `cta` takes under `plan`, in the kernel's order:
+    trip by trip, thread t of each trip taking base + t."""
+    chunk = PK.cta_lanes(n, plan.ctas)
+    lo, hi = cta * chunk, min(n, (cta + 1) * chunk)
+    return [base + t for base in range(lo, hi, plan.threads) for t in range(plan.threads)
+            if base + t < hi]
+
+
+@pytest.mark.parametrize("width", PLAN_WIDTHS)
+def test_launch_plan_covers_every_lane_once(width):
+    for depth in (1, 4, 8):
+        for n in PLAN_LANES:
+            plan = PK.launch_plan(n, depth, width)
+            assert 1 <= plan.ctas and plan.threads % 32 == 0, (n, plan)
+            assert 32 <= plan.threads <= PK.MAX_THREADS, (n, plan)
+            lanes = sorted(i for b in range(plan.ctas) for i in _cta_lanes(n, plan, b))
+            assert lanes == list(range(n)), (n, depth, width, plan)
+            # private rows only where they fit the opt-in shared memory,
+            # hold at most PRIVATE_MAX_CELLS cells, and have as many lanes
+            # as cells, and PRIVATE_LANES
+            cells = 2 * depth * width
+            want = cells <= PK.PRIVATE_MAX_CELLS and n >= max(PK.PRIVATE_LANES, cells)
+            assert plan.private == want, (n, depth, width, plan)
+            assert not plan.private or cells * 4 <= PK.SMEM_BYTES, (n, depth, width, plan)
+    # at D = 8, W = 4,096 the rows (256 KB) exceed it: direct atomics
+    assert not PK.launch_plan(8_192, 8, 4_096).private
+    assert not PK.rows_fit(8, 4_096) and PK.rows_fit(4, 4_096)
+    # the sweep's widths at D = 4: private from 4,096 lanes at W 256 and
+    # 512, from 8,192 at 1,024, never at 2,048 and wider
+    assert [PK.launch_plan(n, 4, w).private for w in (256, 512, 1_024, 2_048, 4_096)
+            for n in (4_096, 8_192)] == [True, True, True, True, False, True] + [False] * 4
+
+
+def _emulate(edge_w, out_deg, in_deg, r, c, cnt, plan):
+    """The kernel's schedule in torch, in place: each CTA's lanes in
+    trips of `plan.threads`; with `plan.private` the degree rows added
+    into the CTA's own zeroed copy, then only its non-zero cells flushed
+    into device memory."""
+    D, W = out_deg.shape
+    n = cnt.shape[0]
+    depth = torch.arange(D).unsqueeze(1)
+    for b in range(plan.ctas):
+        lanes = torch.tensor(_cta_lanes(n, plan, b), dtype=torch.int64)
+        if lanes.numel() == 0 and not plan.private:
+            continue
+        v = cnt[lanes].expand(D, -1)
+        rr, cc = r[:, lanes].long(), c[:, lanes].long()
+        live = (v != 0) & (rr >= 0) & (rr < W) & (cc >= 0) & (cc < W)
+        edge_w.view(-1).index_add_(0, (depth * W * W + rr * W + cc)[live], v[live])
+        rows = (torch.zeros(2 * D * W, dtype=torch.int32) if plan.private
+                else torch.cat([out_deg.view(-1), in_deg.view(-1)]))
+        for half, coord in ((0, rr), (1, cc)):
+            rows.index_add_(0, (half * D * W + depth * W + coord)[live], v[live])
+        if plan.private:
+            nz = torch.nonzero(rows).squeeze(1)
+            flat = torch.cat([out_deg.view(-1), in_deg.view(-1)]).index_add_(0, nz, rows[nz])
+        else:
+            flat = rows
+        out_deg.view(-1).copy_(flat[: D * W])
+        in_deg.view(-1).copy_(flat[D * W:])
+    return edge_w, out_deg, in_deg
+
+
+EMULATED = [(w, n, 4) for w in (128, 256, 512, 1_000) for n in (1, 64, 2_048, 65_536)]
+EMULATED += [(4_096, 65_536, 1), (4_096, 512, 8)]  # D = 8 at 4,096: rows do not fit
+EMULATED = [(*shape, ("uniform", "zipf", "hub")[i % 3]) for i, shape in enumerate(EMULATED)]
+
+
+@pytest.mark.parametrize("width,n,depth,dist", EMULATED)
+def test_kernel_schedule_emulation_matches_plain(width, n, depth, dist):
+    ew, od, idg, src, dst, cnt = _absorb_batch(n + width, n, width, dist, depth)
+    r, c = (PQ.node_hash(_kt(k), depth, width) for k in (src, dst))
+    planned = PK.launch_plan(n, depth, width)
+    fits = 2 * depth * width * 4 <= PK.SMEM_BYTES
+    # the plan, each mode on its grid, one CTA and a CTA a warp
+    plans = {planned, planned._replace(private=fits), planned._replace(private=False),
+             PK.Plan(1, 1_024, fits), PK.Plan(-(-n // 32), 32, False)}
+    want = PK.sketch_absorb_ref(_t(ew.copy()), _t(od.copy()), _t(idg.copy()), _kt(src),
+                                _kt(dst), _t(cnt))
+    for plan in plans:
+        got = _emulate(_t(ew.copy()), _t(od.copy()), _t(idg.copy()), r, c, _t(cnt), plan)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), plan

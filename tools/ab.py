@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""One measurement from two trees of this repository, in turns, on one card.
+
+    python3 tools/ab.py PARENT_ROOT CHANGE_ROOT sharded
+    python3 tools/ab.py PARENT_ROOT CHANGE_ROOT sketch
+
+Runs the named measurement of each tree in a fresh process, in the order
+parent, change, change, parent, so that both trees run on one card in
+one call, and prints each run's output with its tree's label, after the
+card's name and power limit.
+
+  * sharded: the tree's own `chip_smoke.sharded_path` (phase 16:
+    `launch.ingest --shards 4 --dict-compress`, 120 ticks) and
+    `chip_smoke.sharded_breakdown` (phase 17: ticks 40 to 79 with spans
+    on and under torch.profiler).
+  * sketch: CHANGE_ROOT's `chip_smoke.py` driving each tree's
+    `src/repro_torch`: the device kernels of one `sketch_update` call
+    (`chip_smoke._device_kernels`, first, while the process is fresh) at
+    `chip_smoke.SKETCH_UPDATE_LANES`; K3 on hash coordinates
+    (`kernels.sketch.sketch_scatter`) and a sketch update's whole hash
+    and scatter (`ops.sketch_absorb` where the tree has it, else
+    `node_hash` twice and `sketch_scatter`), timed by
+    `chip_smoke._time_ms` at `chip_smoke.SKETCH_LANES` lanes, D = 4,
+    W = 512, uniform and Zipf keys; then the query path's and the
+    sharded workload path's profiled windows
+    (`chip_smoke.query_breakdown`, phase 7, and
+    `chip_smoke.sharded_workload_breakdown`, phase 26).
+
+Each snippet gets CHANGE_ROOT and the tree's root as its arguments.
+"""
+import subprocess
+import sys
+
+SNIPPETS = {
+    "sharded": ("import sys, torch; sys.path.insert(0, sys.argv[2]); import chip_smoke as cs; "
+                "cs.sharded_path(torch); cs.sharded_breakdown(torch)"),
+    "sketch": """
+import json, sys, torch
+from pathlib import Path
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+sys.path.insert(0, sys.argv[2] + "/src")
+import repro_torch
+print("package", repro_torch.__file__)
+assert Path(repro_torch.__file__).resolve().parents[1] == Path(sys.argv[2], "src").resolve()
+from repro_torch.kernels import ops
+from repro_torch.kernels.sketch import sketch_scatter
+from repro_torch.query import sketch as QS
+
+print("sketch_update device kernels a call", json.dumps({
+    n: cs._device_kernels(torch, QS.sketch_update, cs._sketch_update_args(torch, n))
+    for n in cs.SKETCH_UPDATE_LANES}), flush=True)
+D, W, dev = 4, 512, torch.device("cuda")
+absorb = getattr(ops, "sketch_absorb", None)
+
+def update(ew, od, idg, src, dst, cnt):
+    if absorb is not None:
+        return absorb(ew, od, idg, src, dst, cnt)
+    return sketch_scatter(ew, od, idg, QS.node_hash(src, D, W), QS.node_hash(dst, D, W), cnt)
+
+for n in cs.SKETCH_LANES:
+    for dist in ("uniform", "zipf"):
+        base, src, dst, cnt = cs.sketch_batch(torch, dev, np.random.default_rng(1), D, W, n, dist)
+        r, c = QS.node_hash(src, D, W), QS.node_hash(dst, D, W)
+        print("k3 times", json.dumps({
+            "lanes": n, "keys": dist,
+            "sketch_scatter_ms": cs._time_ms(torch, sketch_scatter, base, (r, c, cnt),
+                                             cs.KERNEL_REPS),
+            "update_scatter_ms": cs._time_ms(torch, update, base, (src, dst, cnt),
+                                             cs.KERNEL_REPS)}), flush=True)
+cs.query_breakdown(torch)
+cs.sharded_workload_breakdown(torch)
+""",
+}
+
+
+def main():
+    if len(sys.argv) != 4 or sys.argv[3] not in SNIPPETS:
+        sys.exit(__doc__)
+    parent, change, what = sys.argv[1:]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    for label, root in (("parent", parent), ("change", change), ("change", change),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", SNIPPETS[what], change, root],
+                              capture_output=True, text=True)
+        for line in proc.stdout.splitlines():
+            print(label, line, flush=True)
+        if proc.returncode:
+            sys.exit(f"{label} run failed:\n{proc.stderr[-4000:]}")
+
+
+if __name__ == "__main__":
+    main()
