@@ -49,19 +49,25 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      store, W=512) on the card and on the host and requires equal
      stores, sketches, snapshots and query answers (the card's sketches
      through the fused K3 entry);
-  9. holds the traffic-id sampler kernel against its plain version on
-     the card, bit for bit, for every registry scenario at burst levels
-     0 and 1, at the workload path's 2,048-record block and at 65,536
-     records, for two seeds and a counter start near the uint32 wrap,
-     and times both;
+  9. holds the traffic-id sampler kernel (K4) against its plain version
+     on the card, bit for bit (tolerance 0), through its wrapper and
+     under every plan its kernel takes (CTAs of 32 to 256 threads, 1 to
+     4 records a thread, and the planned one), for every registry
+     scenario at burst levels 0 and 1, at the workload path's
+     2,048-record block and at 65,536 records, for two seeds and a
+     counter start near the uint32 wrap, at 1, 33 and 2,049 records, and
+     at corner parameters (copy_frac 0 and 1, hot-tag share 0 and 1,
+     topic_base + h past n_tags); times the planned kernel and the plain
+     version beside the bound and an empty launch;
  10. drives the workload path, `repro_torch.launch.workload.run`, at its
      default deployment with GraphZip compression (`flash_crowd`, 240
      ticks, seed 0, a 2^20-node, 2^21-edge store, a 4,096-entry
      dictionary), with the launch counters set to 0 just before and
      read just after;
  11. runs that path again, from `run_scenario`'s own builder, with
-     spans on and under torch.profiler, counts the mined batches of
-     each edge-table size and keeps the largest;
+     spans on and under torch.profiler, prints K4's device ms and its
+     launches by block size, counts the mined batches of each
+     edge-table size and keeps the largest;
  12. holds the pattern miner (K5) against its plain version on the
      card, bit for bit, at 1, 2, 64, 512, 1,024, 2,048, 4,096, 8,192,
      16,384 and 65,536 edges (both sides of each step of its cluster
@@ -137,7 +143,7 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      within 1e-4 at every step and equal greedy ids;
  26. runs phase 18's deployment from `run_scenario`'s own builder, ticks
      40 to 79 with spans on and under torch.profiler, and prints K3's
-     device ms over them.
+     and K4's device ms over them, with K4's launches by block size.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
 JSON line.  It exits non-zero without a CUDA device or without the port
@@ -189,6 +195,13 @@ SKETCH_UPDATE_CALL = ("QS.sketch_update", "cs._sketch_update_args(torch, n)")
 ZIPF_A = 1.3
 TRAFFIC_LANES = (2_048, 65_536)  # the workload source's block, and a large one
 TRAFFIC_SEEDS = ((0, 0), (7, 12_345), (0, 2**32 - 5_000))  # (seed, ctr0), the last wraps
+TRAFFIC_SMALL = (1, 33, 2_049)  # one record, a warp and one, a block and one
+# every grid K4's kernel takes: CTA widths and records a thread
+TRAFFIC_THREADS, TRAFFIC_RECORDS = (32, 64, 128, 256), (1, 2, 3, 4)
+# corner parameters of flash_crowd at burst 0.5: (label, "i" or "f", index, value)
+TRAFFIC_CORNERS = (("copy_frac 0", "f", 4, 0.0), ("copy_frac 1", "f", 4, 1.0),
+                   ("hot-tag share 0", "f", 3, 0.0), ("hot-tag share 1", "f", 3, 1.0),
+                   ("topic_base + h past n_tags", "i", 3, 3_997))  # n_tags 4,000, 8 hot
 # K5 on either side of each step of its cluster plan (1 CTA a vector up to
 # 1,024 edges, 8 from 2,048; a CTA takes 8 lanes a thread at 65,536, the
 # largest), the smallest batches, 512 (the path's commonest mined batch)
@@ -493,20 +506,28 @@ def k3_lanes():
     return _launch_lanes(sketch, lambda *args: args[5].shape[0])
 
 
+def k4_lanes():
+    """K4's launches by block size (`sampler.launch(seed, ctr0, n, ...)`)."""
+    from repro_torch.kernels import sampler
+
+    return _launch_lanes(sampler, lambda seed, ctr0, n, *rest: n)
+
+
 def kernel_device(label, kernel, match, device, hist=None):
-    """Prints a kernel's device ms over a profiled run (`_profiled`'s
-    events whose name holds `match`), beside its launches by lane count
-    where `hist` counted them."""
+    """Prints and returns a kernel's device ms over a profiled run
+    (`_profiled`'s events whose name holds `match`), beside its launches
+    by lane count where `hist` counted them."""
     own = [(name, ms, c) for name, ms, c in device if match in name]
     ms, count = sum(ms for _, ms, _ in own), sum(c for _, _, c in own)
-    print(f"{label} {kernel} device: " + json.dumps({
+    out = {
         "device_ms": ms, "device_kernels": count,
         "device_ms_per_launch": ms / count if count else None,
         "share_of_device_busy": ms / sum(m for _, m, _ in device) if device else None,
         **({"launches": sum(hist.values()), "lanes": dict(sorted(hist.items()))}
            if hist is not None else {}),
-        "kernels": [{"name": name[:80], "ms": m, "count": c} for name, m, c in own]}),
-        flush=True)
+        "kernels": [{"name": name[:80], "ms": m, "count": c} for name, m, c in own]}
+    print(f"{label} {kernel} device: " + json.dumps(out), flush=True)
+    return out
 
 
 def main_path(torch):
@@ -916,11 +937,45 @@ def _traffic_bound(n):
     return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
 
 
-def traffic_vs_plain(torch, dev):
-    """Phase 9: traffic_ids kernel vs its plain version, bit-equal."""
-    from repro_torch.kernels.sampler import traffic_ids, traffic_ids_ref
-    from repro_torch.workloads.scenarios import list_scenarios
+def traffic_plans(n):
+    """Every plan of K4's kernel at n records: each CTA width of
+    TRAFFIC_THREADS with each of TRAFFIC_RECORDS records a thread, and the
+    planned one."""
+    from repro_torch.kernels import sampler as SA
 
+    plans = [SA.Plan(-(-n // (t * r)), t, r) for t in TRAFFIC_THREADS for r in TRAFFIC_RECORDS]
+    return plans + [p for p in [SA.launch_plan(n)] if p not in plans]
+
+
+def traffic_hold(torch, label, args):
+    """Holds K4 to its plain version bit for bit (tolerance 0), through
+    the wrapper and under every plan of `traffic_plans`; returns the
+    largest error."""
+    from repro_torch.kernels import sampler as SA
+
+    want = SA.traffic_ids_ref(*args)
+    worst = 0.0
+    for plan in [None] + traffic_plans(args[2]):
+        got = SA.traffic_ids(*args) if plan is None else SA.launch(*args, plan)
+        torch.cuda.synchronize()
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        worst = max(worst, err)
+        if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"traffic_ids kernel != plain at {label} under "
+                                 f"{plan or 'the wrapper'}: max_abs_err={err}")
+    return worst
+
+
+def traffic_vs_plain(torch, dev):
+    """Phase 9: K4 against its plain version, bit for bit under every
+    plan, at every scenario, burst level, size, seed and corner; the
+    planned kernel timed beside the plain version, its bound and an
+    empty launch."""
+    from repro_torch.kernels.sampler import launch, launch_plan, traffic_ids, traffic_ids_ref
+    from repro_torch.workloads.scenarios import get_scenario, list_scenarios
+
+    floor_ms = _time_ms(torch, lambda: torch.cuda._sleep(0), (), (), KERNEL_REPS)
+    print(f"traffic: an empty launch (torch.cuda._sleep(0)) takes {floor_ms} ms", flush=True)
     rows = []
     for scn in list_scenarios():
         ip = torch.from_numpy(scn.iparams()).to(dev)
@@ -929,26 +984,49 @@ def traffic_vs_plain(torch, dev):
             for n in TRAFFIC_LANES:
                 for seed, ctr0 in TRAFFIC_SEEDS:
                     args = (seed, ctr0, n, ip, fp)
-                    got, want = traffic_ids(*args), traffic_ids_ref(*args)
-                    torch.cuda.synchronize()
-                    err = max(float((g.double() - w.double()).abs().max())
-                              for g, w in zip(got, want))
-                    if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
-                        raise AssertionError(f"traffic_ids kernel != plain: {scn.name} "
-                                             f"burst={burst} n={n} seed={seed} ctr0={ctr0} "
-                                             f"max_abs_err={err}")
+                    err = traffic_hold(torch, f"{scn.name} burst={burst} n={n} seed={seed} "
+                                       f"ctr0={ctr0}", args)
                     row = {"scenario": scn.name, "burst": burst, "lanes": n, "seed": seed,
                            "ctr0": ctr0, "max_abs_err": err}
                     if (seed, ctr0) == TRAFFIC_SEEDS[0]:
                         bound_ms, bound_by = _traffic_bound(n)
-                        row.update(ms=_time_ms(torch, traffic_ids, (), args, KERNEL_REPS),
+                        row.update(plan=launch_plan(n)._asdict(),
+                                   ms=_time_ms(torch, traffic_ids, (), args, KERNEL_REPS),
                                    plain_ms=_time_ms(torch, traffic_ids_ref, (), args,
                                                      PLAIN_REPS),
-                                   bound_ms=bound_ms, bound_by=bound_by)
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   launch_floor_ms=floor_ms)
                     rows.append(row)
                     print("traffic", json.dumps(row), flush=True)
+    scn = get_scenario("flash_crowd")
+    corners = 0
+    for n in TRAFFIC_SMALL:
+        for seed, ctr0 in TRAFFIC_SEEDS:
+            args = (seed, ctr0, n, torch.from_numpy(scn.iparams()).to(dev),
+                    torch.from_numpy(scn.fparams(1.0)).to(dev))
+            traffic_hold(torch, f"flash_crowd n={n} seed={seed} ctr0={ctr0}", args)
+            corners += 1
+    for label, kind, k, value in TRAFFIC_CORNERS:
+        ip, fp = scn.iparams(), scn.fparams(0.5)
+        (ip if kind == "i" else fp)[k] = value
+        for n in TRAFFIC_LANES:
+            traffic_hold(torch, f"{label} n={n}", (1, 0, n, torch.from_numpy(ip).to(dev),
+                                                   torch.from_numpy(fp).to(dev)))
+            corners += 1
+    # the launcher refuses a grid with a CTA past the last record (its
+    # record indices would leave int range on a large enough grid)
+    n = TRAFFIC_LANES[0]
+    plan = launch_plan(n)._replace(ctas=launch_plan(n).ctas + 1)
+    try:
+        launch(0, 0, n, torch.from_numpy(scn.iparams()).to(dev),
+               torch.from_numpy(scn.fparams(1.0)).to(dev), plan)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"traffic_ids launched under {plan}, which has an empty CTA")
     print("traffic_ids kernel == plain bit for bit (tolerance 0) at all "
-          f"{len(rows)} shapes", flush=True)
+          f"{len(rows)} shapes and {corners} small sizes and corner cases, under every plan "
+          f"({len(traffic_plans(TRAFFIC_LANES[0]))} at {TRAFFIC_LANES[0]} records)", flush=True)
     return rows
 
 
@@ -1000,7 +1078,8 @@ def workload_breakdown(torch):
     """Phase 11: where a tick of the workload path goes.  Phase 10's
     deployment from `run_scenario`'s own builder, with spans on and
     under torch.profiler; keeps the largest batch the miner saw (a
-    reference, no copy) and counts the batches of each edge-table size."""
+    reference, no copy), counts the batches of each edge-table size and
+    prints K4's device ms.  Returns (the batch, K4's device summary)."""
     from repro_torch.api import MetricsHub
     from repro_torch.telemetry.spans import TelemetryRegistry
     from repro_torch.workloads import get_scenario, scenario_builder
@@ -1024,13 +1103,15 @@ def workload_breakdown(torch):
         return rewrite(et)
 
     dstage.rewrite = keep_largest
-    _profiled(torch, "workload breakdown", reg, lambda: pipe.run(max_ticks=scn.ticks),
-              ticks=scn.ticks)
+    with k4_lanes() as hist:
+        device = _profiled(torch, "workload breakdown", reg,
+                           lambda: pipe.run(max_ticks=scn.ticks), ticks=scn.ticks)
+    k4 = kernel_device("workload breakdown", "K4", "traffic_ids", device, hist)
     print("workload mined batches by edge-table size:",
           json.dumps({str(n): c for n, c in sorted(sizes.items())}), flush=True)
     et = kept["et"]
     return (et.src, et.dst, et.etype, et.count, et.edge_valid, dstage.star_min,
-            dstage.hot_min)
+            dstage.hot_min), k4
 
 
 def _mine_batch(torch, rng, n, kind):
@@ -1534,7 +1615,7 @@ def sharded_workload_breakdown(torch):
     """Phase 26: where a tick of the sharded workload path goes.  Phase
     18's deployment from `run_scenario`'s own builder: PROFILED_TICKS
     ticks run first with spans off, then the next PROFILED_TICKS with
-    spans on and under torch.profiler; K3's device ms over them."""
+    spans on and under torch.profiler; K3's and K4's device ms over them."""
     import itertools
 
     from repro_torch.api import MetricsHub
@@ -1552,11 +1633,13 @@ def sharded_workload_breakdown(torch):
     reg.enabled = True
     label = (f"sharded workload breakdown (ticks {PROFILED_TICKS} to "
              f"{2 * PROFILED_TICKS - 1})")
-    device = _profiled(torch, label, reg,
-                       lambda: pipe.run(itertools.islice(ticks, PROFILED_TICKS),
-                                        max_ticks=PROFILED_TICKS),
-                       ticks=PROFILED_TICKS)
+    with k4_lanes() as hist:
+        device = _profiled(torch, label, reg,
+                           lambda: pipe.run(itertools.islice(ticks, PROFILED_TICKS),
+                                            max_ticks=PROFILED_TICKS),
+                           ticks=PROFILED_TICKS)
     kernel_device("sharded workload breakdown", "K3", "sketch_scatter", device)
+    kernel_device("sharded workload breakdown", "K4", "traffic_ids", device, hist)
 
 
 # beta_e, in hold and throttle rows, is the controller's own float32 RLS
@@ -2099,7 +2182,7 @@ def main():
     phase(8, query_cuda_vs_cpu, torch)
     traffic_rows = phase(9, traffic_vs_plain, torch, dev)
     workload_launches = phase(10, workload_path, torch)
-    path_batch = phase(11, workload_breakdown, torch)
+    path_batch, k4_path = phase(11, workload_breakdown, torch)
     mine_rows = phase(12, mine_vs_plain, torch, dev, path_batch)
     phase(13, workload_cuda_vs_cpu, torch)
     dedup_rows, dedup_launches = phase(14, dedup_vs_plain, torch, dev)
@@ -2172,6 +2255,9 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in traffic_rows),
         "ms": tref["ms"], "plain_ms": tref["plain_ms"], "bound_ms": tref["bound_ms"],
         "bound_by": tref["bound_by"], "library_ms": None,
+        "plan": tref["plan"], "launch_floor_ms": tref["launch_floor_ms"],
+        "device_ms_per_launch": k4_path["device_ms_per_launch"],
+        "device_ms_per_launch_of": "launch.workload's path under torch.profiler (phase 11)",
         "shape": {k: tref[k] for k in ("scenario", "burst", "lanes")},
     }, {
         "name": "pattern_mine", "route": "cuda",

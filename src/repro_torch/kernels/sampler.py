@@ -21,13 +21,15 @@ its own and passes `pow` its exponents as tensors: torch's
 2) that round differently from `pow(tensor, tensor)`.
 
 `traffic_ids` is the wrapper: with parameter tensors on a CUDA device
-it launches the hand-written kernel `csrc/traffic_ids.cu`, on the CPU it
-runs the plain version `traffic_ids_ref`.
+it launches the hand-written kernel `csrc/traffic_ids.cu` on the grid
+the host's `launch_plan` gives (`Plan.ctas` x 3 CTAs, one for each of a
+record's three Zipf ranks), on the CPU it runs the plain version
+`traffic_ids_ref`.  `launch` runs the kernel under any plan it takes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -38,6 +40,38 @@ from repro_torch.kernels import build
 NSTREAMS = 8
 MAX_LANES = 1 << 20  # the block sizes the kernel takes (positions stay exact in float32)
 _M32 = 0xFFFFFFFF
+
+# The launch plan, from tools/k4_plan.py on an H100 (CTAs of 32 to
+# MAX_THREADS threads, 1 to MAX_RECORDS records a thread, at 2,048 to
+# 65,536 records, every scenario at bursts 0 and 1): CTAs of PLAN_THREADS
+# threads, a record a thread, up to PLAN_CTAS CTAs a rank; past that
+# CTAs of MAX_THREADS threads taking as many records a thread as keep
+# PLAN_CTAS CTAs a rank (at most MAX_RECORDS).
+PLAN_THREADS = 128
+PLAN_CTAS = 128
+MAX_THREADS = 256
+MAX_RECORDS = 4
+
+
+class Plan(NamedTuple):
+    ctas: int  # CTAs a rank: the grid is ctas x 3
+    threads: int  # a multiple of 32 up to MAX_THREADS
+    records_a_thread: int  # 1 to MAX_RECORDS
+
+
+def launch_plan(n: int) -> Plan:
+    """The grid `traffic_ids` launches for n records: a record a thread
+    on CTAs of PLAN_THREADS threads (cut to n rounded up to a warp) up to
+    PLAN_CTAS CTAs a rank, then CTAs of MAX_THREADS threads with more
+    records a thread.  CTA (c, r)'s thread t computes rank r of records
+    c T R + k T + t, k < R."""
+    if n <= PLAN_CTAS * PLAN_THREADS:
+        threads, records = min(PLAN_THREADS, -(-n // 32) * 32), 1
+    else:
+        threads = MAX_THREADS
+        records = min(MAX_RECORDS, -(-n // (MAX_THREADS * PLAN_CTAS)))
+    return Plan(-(-n // (threads * records)), threads, records)
+
 
 Traffic = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -123,10 +157,14 @@ def _check(seed, ctr0, n, iparams, fparams):
                          f"{iparams.device} and {fparams.device}")
 
 
-_ARGTYPES = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int] + [ctypes.c_void_p] * 8
+_ARGTYPES = ([ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int] + [ctypes.c_void_p] * 7
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
-def _launch(seed, ctr0, n, iparams, fparams) -> Traffic:
+def launch(seed, ctr0, n, iparams, fparams, plan: Plan) -> Traffic:
+    """The kernel on CUDA tensors that `_check` passed, under `plan`.
+    `traffic_ids` passes `launch_plan(n)`; tools/k4_plan.py and
+    chip_smoke.py run every plan the kernel takes."""
     fn = build.library("traffic_ids").traffic_ids_launch
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -137,9 +175,10 @@ def _launch(seed, ctr0, n, iparams, fparams) -> Traffic:
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(int(seed), int(ctr0), n, ip.data_ptr(), fp.data_ptr(),
              ints[0].data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(),
-             floats[0].data_ptr(), floats[1].data_ptr(), stream)
+             floats[0].data_ptr(), floats[1].data_ptr(), plan.ctas, plan.threads,
+             plan.records_a_thread, stream)
     if err != 0:
-        raise RuntimeError(f"traffic_ids launch failed: cudaError {err}")
+        raise RuntimeError(f"traffic_ids launch failed: cudaError {err} under {plan}")
     build.launches["traffic_ids"] += 1
     return ints[0], ints[1], ints[2], floats[0], floats[1]
 
@@ -153,7 +192,7 @@ def traffic_ids(seed: int, ctr0: int, n: int, iparams: torch.Tensor,
     launches the kernel, the CPU runs `traffic_ids_ref`."""
     _check(seed, ctr0, n, iparams, fparams)
     if iparams.device.type == "cuda":
-        return _launch(seed, ctr0, n, iparams, fparams)
+        return launch(seed, ctr0, n, iparams, fparams, launch_plan(n))
     if iparams.device.type == "cpu":
         return traffic_ids_ref(seed, ctr0, n, iparams, fparams)
     raise ValueError(f"traffic_ids runs on cuda or cpu, not {iparams.device}")

@@ -3,6 +3,7 @@
 
     python3 tools/ab.py PARENT_ROOT CHANGE_ROOT sharded
     python3 tools/ab.py PARENT_ROOT CHANGE_ROOT sketch
+    python3 tools/ab.py PARENT_ROOT CHANGE_ROOT traffic
 
 Runs the named measurement of each tree in a fresh process, in the order
 parent, change, change, parent, so that both trees run on one card in
@@ -25,11 +26,25 @@ card's name and power limit.
     sharded workload path's profiled windows
     (`chip_smoke.query_breakdown`, phase 7, and
     `chip_smoke.sharded_workload_breakdown`, phase 26).
+  * traffic: CHANGE_ROOT's `chip_smoke.py` driving each tree's
+    `src/repro_torch`: an empty launch and K4 through the public
+    `kernels.sampler.traffic_ids` at phase 9's timed shapes (every
+    registry scenario at burst levels 0 and 1, `chip_smoke.TRAFFIC_LANES`
+    records, seed 0, ctr0 0; `chip_smoke._time_ms`, median of
+    TRAFFIC_REPS); then the workload path's and the sharded workload
+    path's profiled windows (`chip_smoke.workload_breakdown`, phase 11,
+    and `chip_smoke.sharded_workload_breakdown`, phase 26), which print
+    K4's device ms and launches by block size, device busy ms and the
+    idle share.  A tree whose sampler has no `launch` (before the launch
+    plan) has its launches routed through one, so that they are counted
+    the same way.
 
 Each snippet gets CHANGE_ROOT and the tree's root as its arguments.
 """
 import subprocess
 import sys
+
+TRAFFIC_REPS = 50
 
 SNIPPETS = {
     "sharded": ("import sys, torch; sys.path.insert(0, sys.argv[2]); import chip_smoke as cs; "
@@ -72,6 +87,38 @@ for n in cs.SKETCH_LANES:
 cs.query_breakdown(torch)
 cs.sharded_workload_breakdown(torch)
 """,
+    "traffic": """
+import json, sys, torch
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+sys.path.insert(0, sys.argv[2] + "/src")
+import repro_torch
+print("package", repro_torch.__file__)
+assert Path(repro_torch.__file__).resolve().parents[1] == Path(sys.argv[2], "src").resolve()
+from repro_torch.kernels import sampler as S
+from repro_torch.workloads.scenarios import list_scenarios
+
+if not hasattr(S, "launch"):
+    real = S._launch
+    S.launch = lambda seed, ctr0, n, ip, fp, plan=None: real(seed, ctr0, n, ip, fp)
+    S._launch = lambda *a: S.launch(*a)
+REPS = %d
+dev = torch.device("cuda")
+print("k4 floor", json.dumps({"empty_launch_ms": cs._time_ms(
+    torch, lambda: torch.cuda._sleep(0), (), (), REPS)}), flush=True)
+for scn in list_scenarios():
+    ip = torch.from_numpy(scn.iparams()).to(dev)
+    for burst in (0.0, 1.0):
+        fp = torch.from_numpy(scn.fparams(burst)).to(dev)
+        for n in cs.TRAFFIC_LANES:
+            print("k4 times", json.dumps({
+                "scenario": scn.name, "burst": burst, "lanes": n,
+                "ms": cs._time_ms(torch, S.traffic_ids, (), (0, 0, n, ip, fp), REPS)}),
+                flush=True)
+cs.workload_breakdown(torch)
+cs.sharded_workload_breakdown(torch)
+""" % TRAFFIC_REPS,
 }
 
 
