@@ -93,10 +93,20 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      version and `torch.sort`, with the device kernels of one call
      (torch.profiler) beside the launches its plan makes;
  15. drives the entry point's Bloom ops (K6a probe, K6b build) at 2 to
-     64 rows and 64 to 16,384 keys and `bloom_diversity` over 120 Zipf
-     batches into one 64-row filter, the same way, held bit for bit
-     against the plain versions (no false negatives, inputs unchanged),
-     and times them;
+     64 rows and 64 to 16,384 keys and `bloom_diversity` (one launch of
+     the fused entry a step) over 120 Zipf batches into one 64-row
+     filter, the same way (9 probes, 9 builds, 120 fused launches), held
+     bit for bit against the plain versions; holds the probe, the build
+     and the fused entry under every plan of the sweep (the build's
+     striped route at 1 to 16 rows a CTA and the grid route, the fused
+     entry's grid route, 128 to 1,024 threads; probe CTAs of 32 to 256
+     threads, a key a thread) at
+     those shapes, the diversity step's and corners (rows 1, 3, 48; 1, 33
+     and 2,049 keys; one hub key in all 16,384 lanes; keys 0 and
+     2^32 - 1): no false negatives, inputs unchanged; refuses a probe grid
+     with an empty CTA; times the planned kernels and the plain versions
+     beside an empty launch, and a diversity step with its device kernels
+     (torch.profiler, in a fresh process);
  16. drives the sharded ingest CLI, `launch.ingest --shards 4
      --dict-compress`, for 120 ticks at the default deployment, with the
      launch counters set to 0 just before and read just after;
@@ -222,6 +232,13 @@ DEDUP_KINDS = ("5", "n/4", "2^31", "equal", "sorted", "reversed")
 BLOOM_ROWS = (2, 16, 64)
 BLOOM_LANES = (64, 1_024, 16_384)  # up to the default node table's 16,384 lanes
 DIVERSITY_STEPS, DIVERSITY_ROWS = 120, 64
+BLOOM_CORNER_ROWS = (1, 3, 48)  # one row, an odd count, and no power of two
+BLOOM_SMALL = (1, 33, 2_049)  # one key, a warp and one, 2,048 and one
+# args of one diversity step in a fresh process, for _kernels_a_call: a
+# Zipf batch into the 64-row filter
+DIVERSITY_CALL_ARGS = ("(torch.from_numpy(cs._bloom_zipf(np.random.default_rng(1), "
+                       "np.random.default_rng(2).integers(0, 2**32, size=1 << 18), n)).cuda(), "
+                       "torch.zeros((cs.DIVERSITY_ROWS, 1024), dtype=torch.int32, device='cuda'))")
 SHARDS = 4
 PROFILED_TICKS = 40  # the profiled query and sharded windows (phases 7 and 17)
 SHARDED_ARGV = ["--shards", str(SHARDS), "--dict-compress", "--ticks", str(MAIN_TICKS)]
@@ -1400,37 +1417,109 @@ def dedup_vs_plain(torch, dev):
     return rows, launches
 
 
+def _bloom_filter(torch, dev, rng, rows):
+    """A filter already in use: a few bits set in each word."""
+    from repro_torch.kernels.bloom import LANES
+
+    return torch.from_numpy((rng.integers(0, 2**32, size=(rows, LANES), dtype=np.uint32)
+                             & np.uint32(0x00100001)).view(np.int32)).to(dev)
+
+
+def _bloom_zipf(rng, pool, n):
+    """n Zipf (a = ZIPF_A) draws from `pool`."""
+    return pool[np.minimum(rng.zipf(ZIPF_A, size=n), pool.size) - 1]
+
+
+def bloom_hold(torch, label, keys, start, queries=None):
+    """Holds K6a, K6b and the fused entry to the plain versions bit for
+    bit (tolerance 0) under every plan of the sweep and `launch_plan`'s
+    (`bloom.build_plans`, `bloom.probe_plans`): the build, the fused
+    entry's bitmap and its float32 hits against `start` (on the grid
+    route, the only one it takes), the probe of
+    `queries` (default the keys) against the built filter; no false
+    negatives and `start` unchanged.  Returns the largest error."""
+    from repro_torch.kernels import bloom as BL
+
+    rows, n = start.shape[0], keys.shape[0]
+    before = start.clone()
+    queries = keys if queries is None else queries
+    want_b = BL.bloom_build_plain(keys, start)
+    want_fh = BL.bloom_probe_plain(keys, start).to(torch.float32)
+    want_hit = BL.bloom_probe_plain(queries, want_b)
+    worst = 0
+    for plan in BL.build_plans(rows, n):
+        b = BL.launch("bloom_build", keys, start, plan)
+        torch.cuda.synchronize()
+        err = int((b != want_b).sum())
+        worst = max(worst, err)
+        if err or not torch.equal(b, want_b):
+            raise AssertionError(f"bloom build != plain at {label} under {plan}: "
+                                 f"max_abs_err={err}")
+    for plan in BL.build_plans(rows, n, fused=True):
+        fh, fb = BL.launch("bloom_diversity", keys, start, plan)
+        torch.cuda.synchronize()
+        err = max(int((fb != want_b).sum()), float((fh - want_fh).abs().max()))
+        worst = max(worst, err)
+        if err or not (torch.equal(fb, want_b) and torch.equal(fh, want_fh)):
+            raise AssertionError(f"bloom_diversity != plain at {label} under {plan}: "
+                                 f"max_abs_err={err}")
+    for plan in BL.probe_plans(rows, n):
+        hit = BL.launch("bloom_probe", queries, want_b, plan)
+        if not torch.equal(hit, want_hit):
+            raise AssertionError(f"bloom probe != plain at {label} under {plan}")
+        if not bool((BL.launch("bloom_probe", keys, want_b, plan) == 1).all()):
+            raise AssertionError(f"bloom false negative at {label} under {plan}")
+    if not torch.equal(start, before):
+        raise AssertionError(f"a Bloom entry changed its input bitmap at {label}")
+    return worst
+
+
+def _bloom_bounds(torch, keys, queries, rows):
+    """(probe, build, diversity step) least ms, all bytes: the uint32
+    keys (4 B each, not the port's int64 carrier) read; a probe reads the
+    distinct words it tests and writes its int32 hits, a build reads the
+    bitmap and writes its new copy, a diversity step does the build and
+    writes a float32 hit a key."""
+    from repro_torch.kernels.bloom import LANES, _bit_coords
+
+    n, words = keys.shape[0], rows * LANES
+    touched = int(torch.unique(torch.cat([_bit_coords(queries, r, words)[0]
+                                          for r in range(4)])).numel())
+    probe, build = 4 * n + 4 * touched + 4 * n, 4 * n + 2 * 4 * words
+    return [b / H100_BYTES_PER_S * 1e3 for b in (probe, build, build + 4 * n)]
+
+
 def bloom_vs_plain(torch, dev):
     """Phase 15: the kernel-ops entry point's Bloom ops (K6a probe, K6b
-    build) at every shape and bloom_diversity over successive Zipf
-    batches into one filter, with the launch counters set to 0 just
-    before and read just after; each result held bit for bit against the
-    plain versions; then both kernels and plain versions timed."""
+    build) at every shape and bloom_diversity (one launch of the fused
+    entry a step) over successive Zipf batches into one filter, with the
+    launch counters set to 0 just before and read just after; each
+    result and every step held bit for bit against the plain versions;
+    then every entry held under every plan at every shape and at corners
+    (rows 1, 3, 48; 1, 33, 2,049 keys; one hub key in all lanes; keys 0
+    and 2^32 - 1), a plan with an empty CTA refused; then the planned
+    kernels, the plain versions, an empty launch and a diversity step
+    timed, with the device kernels of one step."""
+    from repro_torch.kernels import bloom as BL
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels.bloom import (
-        LANES, _bit_coords, bloom_build_plain, bloom_probe_plain, init_bitmap)
 
     rng = np.random.default_rng(4)
     cases = []
     for rows in BLOOM_ROWS:
         for n in BLOOM_LANES:
-            # a filter already in use: a few bits set in each word
-            start = torch.from_numpy(
-                (rng.integers(0, 2**32, size=(rows, LANES), dtype=np.uint32)
-                 & np.uint32(0x00100001)).view(np.int32)).to(dev)
+            start = _bloom_filter(torch, dev, rng, rows)
             keys = torch.from_numpy(rng.integers(0, 2**32, size=n)).to(dev)
             queries = torch.cat([keys[: n // 2],
                                  torch.from_numpy(rng.integers(0, 2**32, size=n // 2)).to(dev)])
             cases.append((rows, n, start, keys, queries))
     pool = rng.integers(0, 2**32, size=1 << 18)
-    batches = [torch.from_numpy(pool[np.minimum(rng.zipf(ZIPF_A, size=BLOOM_LANES[-1]),
-                                                pool.size) - 1]).to(dev)
+    batches = [torch.from_numpy(_bloom_zipf(rng, pool, BLOOM_LANES[-1])).to(dev)
                for _ in range(DIVERSITY_STEPS)]
 
     build.launches.clear()
     built = [ops.bloom_build(keys, start) for _, _, start, keys, _ in cases]
     hits = [ops.bloom_probe(q, b) for (_, _, _, _, q), b in zip(cases, built)]
-    bm = init_bitmap(DIVERSITY_ROWS, device=dev)
+    bm = BL.init_bitmap(DIVERSITY_ROWS, device=dev)
     steps = []
     for batch in batches:
         rho, new_bm = ops.bloom_diversity(batch, bm)
@@ -1438,58 +1527,106 @@ def bloom_vs_plain(torch, dev):
         bm = new_bm
     torch.cuda.synchronize()
     launches = dict(build.launches)
-    want_each = len(cases) + DIVERSITY_STEPS
-    if launches.get("bloom_build", 0) != want_each or launches.get("bloom_probe", 0) != want_each:
-        raise AssertionError(f"expected {want_each} launches of each Bloom kernel: {launches}")
+    want = {"bloom_build": len(cases), "bloom_probe": len(cases),
+            "bloom_diversity": DIVERSITY_STEPS}
+    if launches != want:
+        raise AssertionError(f"expected Bloom launches {want}, got {launches}")
 
-    out = []
     for (rows, n, start, keys, queries), b, hit in zip(cases, built, hits):
-        before = start.clone()
-        want_b = bloom_build_plain(keys, start)
-        want_hit = bloom_probe_plain(queries, want_b)
-        err = max(int((b != want_b).sum()), int((hit - want_hit).abs().max()))
-        if err or not (torch.equal(b, want_b) and torch.equal(hit, want_hit)):
-            raise AssertionError(f"bloom kernels != plain: rows={rows} n={n} max_abs_err={err}")
-        if not bool((ops.bloom_probe(keys, b) == 1).all()):
-            raise AssertionError(f"bloom false negative: rows={rows} n={n}")
-        if not torch.equal(start, before):
-            raise AssertionError("bloom_build changed its input bitmap")
-        # least bytes: the uint32 keys (4 B each, not the port's int64
-        # carrier) read; a probe reads the distinct words it tests and
-        # writes its int32 hits, a build reads the bitmap and writes its
-        # new copy
-        words = rows * LANES
-        touched = int(torch.unique(torch.cat([_bit_coords(queries, r, words)[0]
-                                              for r in range(4)])).numel())
-        probe_bytes, build_bytes = 4 * n + 4 * touched + 4 * n, 4 * n + 2 * 4 * words
-        row = {"rows": rows, "lanes": n, "hit_share": float(hit.float().mean()),
-               "max_abs_err": err,
-               "probe_ms": _time_ms(torch, ops.bloom_probe, (), (queries, b), KERNEL_REPS),
-               "probe_plain_ms": _time_ms(torch, bloom_probe_plain, (), (queries, b),
-                                          PLAIN_REPS),
-               "probe_bound_ms": probe_bytes / H100_BYTES_PER_S * 1e3,
-               "build_ms": _time_ms(torch, ops.bloom_build, (), (keys, start), KERNEL_REPS),
-               "build_plain_ms": _time_ms(torch, bloom_build_plain, (), (keys, start),
-                                          PLAIN_REPS),
-               "build_bound_ms": build_bytes / H100_BYTES_PER_S * 1e3}
-        out.append(row)
-        print("bloom", json.dumps(row), flush=True)
+        want_b = BL.bloom_build_plain(keys, start)
+        want_hit = BL.bloom_probe_plain(queries, want_b)
+        if not (torch.equal(b, want_b) and torch.equal(hit, want_hit)):
+            raise AssertionError(f"bloom kernels != plain on the path: rows={rows} n={n}")
     for i, (bm_in, rho, new_bm) in enumerate(steps):
         before = bm_in.clone()
-        hit = bloom_probe_plain(batches[i], bm_in)
+        hit = BL.bloom_probe_plain(batches[i], bm_in)
         want_rho = 1.0 - hit.to(torch.float32).mean()
         if not (torch.equal(rho, want_rho) and torch.equal(new_bm,
-                                                         bloom_build_plain(batches[i], bm_in))):
+                                                         BL.bloom_build_plain(batches[i], bm_in))):
             raise AssertionError(f"bloom_diversity kernel != plain at step {i}")
         if not torch.equal(bm_in, before):
             raise AssertionError("bloom_diversity changed its input bitmap")
     rhos = [float(r) for _, r, _ in steps]
     print(f"bloom_diversity: {DIVERSITY_STEPS} Zipf batches of {BLOOM_LANES[-1]} into one "
-          f"{DIVERSITY_ROWS}-row filter equal to plain on every step; rho first "
-          f"{rhos[0]} last {rhos[-1]}", flush=True)
-    print("bloom_probe and bloom_build kernels == plain bit for bit (tolerance 0) at all "
-          f"{len(out)} shapes, no false negatives, inputs unchanged", flush=True)
-    return out, launches
+          f"{DIVERSITY_ROWS}-row filter equal to plain on every step, one launch a step; rho "
+          f"first {rhos[0]} last {rhos[-1]}", flush=True)
+
+    worst = {(rows, n): bloom_hold(torch, f"rows={rows} n={n}", keys, start, queries)
+             for rows, n, start, keys, queries in cases}
+    # the diversity step's shape, on the filter of its 60th step
+    worst[("step", BLOOM_LANES[-1])] = bloom_hold(torch, "diversity step 60", batches[60],
+                                                  steps[60][0])
+    corners = 0
+    for rows in BLOOM_CORNER_ROWS:
+        for n in BLOOM_SMALL:
+            keys = rng.integers(0, 2**32, size=n)
+            keys[: min(n, 2)] = [0, 2**32 - 1][: min(n, 2)]
+            bloom_hold(torch, f"rows={rows} n={n}", torch.from_numpy(keys).to(dev),
+                       _bloom_filter(torch, dev, rng, rows))
+            corners += 1
+    for rows in (2,) + BLOOM_CORNER_ROWS + (DIVERSITY_ROWS,):
+        for label, keys in (("one hub key", np.full(BLOOM_LANES[-1], 0x9E3779B9)),
+                            ("keys 0 and 2^32 - 1", np.tile([0, 2**32 - 1], 8))):
+            bloom_hold(torch, f"{label} rows={rows}", torch.from_numpy(keys).to(dev),
+                       _bloom_filter(torch, dev, rng, rows))
+            corners += 1
+    # the launcher refuses a probe grid with a CTA past the last key and
+    # builds its kernels do not run
+    keys, start = cases[0][3], cases[0][2]  # 64 keys, 2 rows
+    own = BL.launch_plan(2, keys.shape[0])
+    for entry, plan in (("bloom_probe", own._replace(probe_ctas=own.probe_ctas + 1)),
+                        ("bloom_build", own._replace(route="striped", stripe=BL.MAX_STRIPE + 1)),
+                        ("bloom_diversity", own._replace(route="grid", stripe=1)),
+                        ("bloom_diversity", own._replace(route="striped", stripe=1)),
+                        ("bloom_build", own._replace(threads=48))):
+        try:
+            BL.launch(entry, keys, start, plan)
+        except RuntimeError:
+            continue
+        raise AssertionError(f"{entry} launched under {plan} on {start.shape[0]} rows")
+    print("bloom_probe, bloom_build and bloom_diversity kernels == plain bit for bit "
+          f"(tolerance 0) under every plan ({len(BL.build_plans(64, 16_384))} build, "
+          f"{len(BL.build_plans(64, 16_384, fused=True))} fused, "
+          f"{len(BL.probe_plans(64, 16_384))} probe at 64 rows) at all {len(cases)} shapes, "
+          f"the diversity step and {corners} corners; no false negatives, inputs unchanged; "
+          "a probe grid with an empty CTA, builds the kernels do not run and the fused entry "
+          "off the grid route refused", flush=True)
+
+    floor_ms = _time_ms(torch, lambda: torch.cuda._sleep(0), (), (), KERNEL_REPS)
+    print(f"bloom: an empty launch (torch.cuda._sleep(0)) takes {floor_ms} ms", flush=True)
+    out = []
+    for (rows, n, start, keys, queries), b in zip(cases, built):
+        probe_bound, build_bound, _ = _bloom_bounds(torch, keys, queries, rows)
+        row = {"rows": rows, "lanes": n, "hit_share": float(BL.bloom_probe_plain(queries, b)
+                                                            .float().mean()),
+               "max_abs_err": worst[(rows, n)], "plan": BL.launch_plan(rows, n)._asdict(),
+               "probe_ms": _time_ms(torch, ops.bloom_probe, (), (queries, b), KERNEL_REPS),
+               "probe_plain_ms": _time_ms(torch, BL.bloom_probe_plain, (), (queries, b),
+                                          PLAIN_REPS),
+               "probe_bound_ms": probe_bound,
+               "build_ms": _time_ms(torch, ops.bloom_build, (), (keys, start), KERNEL_REPS),
+               "build_plain_ms": _time_ms(torch, BL.bloom_build_plain, (), (keys, start),
+                                          PLAIN_REPS),
+               "build_bound_ms": build_bound, "launch_floor_ms": floor_ms}
+        out.append(row)
+        print("bloom", json.dumps(row), flush=True)
+
+    def plain_step(keys, bitmap):
+        return (1.0 - BL.bloom_probe_plain(keys, bitmap).to(torch.float32).mean(),
+                BL.bloom_build_plain(keys, bitmap))
+
+    batch, bm_in = batches[60], steps[60][0]
+    device_kernels = _kernels_a_call("ops.bloom_diversity", DIVERSITY_CALL_ARGS,
+                                     [BLOOM_LANES[-1]])[BLOOM_LANES[-1]]
+    step = {"rows": DIVERSITY_ROWS, "lanes": BLOOM_LANES[-1], "keys": "zipf",
+            "plan": BL.launch_plan(DIVERSITY_ROWS, BLOOM_LANES[-1], fused=True)._asdict(),
+            "step_ms": _time_ms(torch, ops.bloom_diversity, (), (batch, bm_in), KERNEL_REPS),
+            "step_plain_ms": _time_ms(torch, plain_step, (), (batch, bm_in), PLAIN_REPS),
+            "step_bound_ms": _bloom_bounds(torch, batch, batch, DIVERSITY_ROWS)[2],
+            "device_kernels": device_kernels, "launch_floor_ms": floor_ms,
+            "max_abs_err": worst[("step", BLOOM_LANES[-1])]}
+    print("bloom_diversity step", json.dumps(step), flush=True)
+    return out, launches, step
 
 
 def sharded_path(torch):
@@ -2186,7 +2323,7 @@ def main():
     mine_rows = phase(12, mine_vs_plain, torch, dev, path_batch)
     phase(13, workload_cuda_vs_cpu, torch)
     dedup_rows, dedup_launches = phase(14, dedup_vs_plain, torch, dev)
-    bloom_rows, bloom_launches = phase(15, bloom_vs_plain, torch, dev)
+    bloom_rows, bloom_launches, bloom_step = phase(15, bloom_vs_plain, torch, dev)
     phase(16, sharded_path, torch)
     phase(17, sharded_breakdown, torch)
     phase(18, sharded_workload_path, torch)
@@ -2286,20 +2423,37 @@ def main():
         "source": "src/repro_torch/kernels/csrc/bloom.cu",
         "replaces": "src/repro/kernels/bloom.py:77",
         "path": "kernels.ops.bloom_probe and bloom_diversity (phase 15)",
-        "launches": bloom_launches["bloom_probe"], "matched": True,
-        "max_abs_err": max(r["max_abs_err"] for r in bloom_rows),
+        "launches": bloom_launches["bloom_probe"] + bloom_launches["bloom_diversity"],
+        "matched": True, "max_abs_err": max(r["max_abs_err"] for r in bloom_rows),
         "ms": bref["probe_ms"], "plain_ms": bref["probe_plain_ms"],
         "bound_ms": bref["probe_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "plan": bref["plan"], "launch_floor_ms": bref["launch_floor_ms"],
+        "entries": [{"name": "bloom_probe", "launches": bloom_launches["bloom_probe"]},
+                    {"name": "bloom_diversity", "launches": bloom_launches["bloom_diversity"],
+                     "takes": "the probe and the build of one step in one launch"}],
+        "step_ms": bloom_step["step_ms"], "step_plain_ms": bloom_step["step_plain_ms"],
+        "step_bound_ms": bloom_step["step_bound_ms"],
+        "device_kernels": bloom_step["device_kernels"],
+        "device_kernels_of": "one ops.bloom_diversity step, 64 rows, 16,384 Zipf keys",
         "shape": {k: bref[k] for k in ("rows", "lanes")},
     }, {
         "name": "bloom_build", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bloom.cu",
         "replaces": "src/repro/kernels/bloom.py:97",
         "path": "kernels.ops.bloom_build and bloom_diversity (phase 15)",
-        "launches": bloom_launches["bloom_build"], "matched": True,
-        "max_abs_err": max(r["max_abs_err"] for r in bloom_rows),
+        "launches": bloom_launches["bloom_build"] + bloom_launches["bloom_diversity"],
+        "matched": True,
+        "max_abs_err": max([r["max_abs_err"] for r in bloom_rows] + [bloom_step["max_abs_err"]]),
         "ms": bref["build_ms"], "plain_ms": bref["build_plain_ms"],
         "bound_ms": bref["build_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "plan": bref["plan"], "launch_floor_ms": bref["launch_floor_ms"],
+        "entries": [{"name": "bloom_build", "launches": bloom_launches["bloom_build"]},
+                    {"name": "bloom_diversity", "launches": bloom_launches["bloom_diversity"],
+                     "takes": "the probe and the build of one step in one launch"}],
+        "step_ms": bloom_step["step_ms"], "step_plain_ms": bloom_step["step_plain_ms"],
+        "step_bound_ms": bloom_step["step_bound_ms"],
+        "device_kernels": bloom_step["device_kernels"],
+        "device_kernels_of": "one ops.bloom_diversity step, 64 rows, 16,384 Zipf keys",
         "shape": {k: bref[k] for k in ("rows", "lanes")},
     }, {
         "name": "flash_attention", "route": "cuda",

@@ -3,14 +3,16 @@
 
 Each op dispatches on the device of its tensors: a CUDA tensor launches
 the hand-written kernel, a CPU tensor runs the plain PyTorch version.
-`dedup_sorted_counts` and `bloom_diversity` are plain tensor code over
-the kernels' outputs, on either device.
+`dedup_sorted_counts` is plain tensor code over the kernel's outputs,
+on either device; `bloom_diversity` is one launch of the Bloom kernel's
+fused entry on the card (the plain probe, then the plain build, on the
+CPU) and one mean.
 """
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.bloom import bloom_build, bloom_probe
+from repro_torch.kernels.bloom import bloom_build, bloom_probe, bloom_probe_build
 from repro_torch.kernels.edge_dedup import sort_dedup
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.pattern_mine import pattern_mine
@@ -40,8 +42,9 @@ def bloom_diversity(keys: torch.Tensor,
                     bitmap: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rho, new_bitmap): the share of `keys` the filter has not seen
     (0-d float32), and the filter with them inserted; the pre-commit
-    diversity signal for the buffer controller.  Probes first, then
-    builds, as the reference does; `bitmap` is left unchanged."""
-    hit = bloom_probe(keys, bitmap)
-    rho = 1.0 - hit.to(torch.float32).mean()
-    return rho, bloom_build(keys, bitmap)
+    diversity signal for the buffer controller.  Probes the filter as it
+    was, then builds, as the reference does; `bitmap` is left unchanged.
+    The hits are float32 0.0 / 1.0 on both devices, so rho is torch's
+    own mean of them."""
+    hit, new = bloom_probe_build(keys, bitmap)
+    return 1.0 - hit.mean(), new

@@ -4,6 +4,7 @@
     python3 tools/ab.py PARENT_ROOT CHANGE_ROOT sharded
     python3 tools/ab.py PARENT_ROOT CHANGE_ROOT sketch
     python3 tools/ab.py PARENT_ROOT CHANGE_ROOT traffic
+    python3 tools/ab.py PARENT_ROOT CHANGE_ROOT bloom
 
 Runs the named measurement of each tree in a fresh process, in the order
 parent, change, change, parent, so that both trees run on one card in
@@ -38,6 +39,14 @@ card's name and power limit.
     idle share.  A tree whose sampler has no `launch` (before the launch
     plan) has its launches routed through one, so that they are counted
     the same way.
+  * bloom: CHANGE_ROOT's `chip_smoke.py` driving each tree's
+    `src/repro_torch`: the device kernels of one `ops.bloom_diversity`
+    step (`chip_smoke._device_kernels`, first, while the process is
+    fresh), an empty launch, K6a and K6b through the public
+    `ops.bloom_probe` and `ops.bloom_build` at phase 15's shapes (its
+    generators and seed) and a diversity step (64 rows, 16,384 Zipf keys
+    into the filter of 60 earlier steps), each timed by
+    `chip_smoke._time_ms`, median of BLOOM_REPS.
 
 Each snippet gets CHANGE_ROOT and the tree's root as its arguments.
 """
@@ -45,6 +54,7 @@ import subprocess
 import sys
 
 TRAFFIC_REPS = 50
+BLOOM_REPS = 50
 
 SNIPPETS = {
     "sharded": ("import sys, torch; sys.path.insert(0, sys.argv[2]); import chip_smoke as cs; "
@@ -119,6 +129,48 @@ for scn in list_scenarios():
 cs.workload_breakdown(torch)
 cs.sharded_workload_breakdown(torch)
 """ % TRAFFIC_REPS,
+    "bloom": """
+import json, sys, torch
+from pathlib import Path
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+sys.path.insert(0, sys.argv[2] + "/src")
+import repro_torch
+print("package", repro_torch.__file__)
+assert Path(repro_torch.__file__).resolve().parents[1] == Path(sys.argv[2], "src").resolve()
+from repro_torch.kernels import ops
+from repro_torch.kernels.bloom import bloom_build_plain, init_bitmap
+
+REPS = %d
+dev = torch.device("cuda")
+rng = np.random.default_rng(4)
+pool = rng.integers(0, 2**32, size=1 << 18)
+n = cs.BLOOM_LANES[-1]
+bm = init_bitmap(cs.DIVERSITY_ROWS, device=dev)
+for _ in range(60):
+    bm = bloom_build_plain(torch.from_numpy(cs._bloom_zipf(rng, pool, n)).to(dev), bm)
+batch = torch.from_numpy(cs._bloom_zipf(rng, pool, n)).to(dev)
+print("k6 step device kernels", json.dumps({"device_kernels": cs._device_kernels(
+    torch, ops.bloom_diversity, (batch, bm))}), flush=True)
+print("k6 floor", json.dumps({"empty_launch_ms": cs._time_ms(
+    torch, lambda: torch.cuda._sleep(0), (), (), REPS)}), flush=True)
+rng = np.random.default_rng(4)
+for rows in cs.BLOOM_ROWS:
+    for m in cs.BLOOM_LANES:
+        start = cs._bloom_filter(torch, dev, rng, rows)
+        keys = torch.from_numpy(rng.integers(0, 2**32, size=m)).to(dev)
+        queries = torch.cat([keys[: m // 2],
+                             torch.from_numpy(rng.integers(0, 2**32, size=m // 2)).to(dev)])
+        built = ops.bloom_build(keys, start)
+        print("k6 times", json.dumps({
+            "rows": rows, "lanes": m,
+            "probe_ms": cs._time_ms(torch, ops.bloom_probe, (), (queries, built), REPS),
+            "build_ms": cs._time_ms(torch, ops.bloom_build, (), (keys, start), REPS)}),
+            flush=True)
+print("k6 step", json.dumps({"rows": cs.DIVERSITY_ROWS, "lanes": n, "step_ms": cs._time_ms(
+    torch, ops.bloom_diversity, (), (batch, bm), REPS)}), flush=True)
+""" % BLOOM_REPS,
 }
 
 
