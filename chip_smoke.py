@@ -153,7 +153,21 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      within 1e-4 at every step and equal greedy ids;
  26. runs phase 18's deployment from `run_scenario`'s own builder, ticks
      40 to 79 with spans on and under torch.profiler, and prints K3's
-     and K4's device ms over them, with K4's launches by block size.
+     and K4's device ms over them, with K4's launches by block size;
+ 27. runs phase 10's deployment through `run_scenario` with span
+     telemetry, the controller audit trail, the health monitor and both
+     trace exporters on, with the launch counters set to 0 just before
+     and read just after (K1, K4 and K5 counted against the run's
+     commits, mined batches and ticks); validates the Chrome trace (the
+     telemetry CLI's dryrun stages and `commit.wait`) and the JSONL
+     sink, requires one audit record per decision; runs the same
+     deployment on the host on the card's record stream, its controller
+     deciding for itself, and requires the same decisions, records,
+     audit trail (actions, reasons, betas, PerfMon inputs and outcomes),
+     the trail's predictions within F2's tolerances, detector events on
+     the series that are not wall-clock and SLO breaches but
+     `commit_p99`'s; and times the card's run with telemetry and the
+     monitor off and on, in the order off, on, on, off.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
 JSON line.  It exits non-zero without a CUDA device or without the port
@@ -268,6 +282,8 @@ SSD_TOL = 1e-4  # the reference test's float32 tolerance (tests/test_kernels.py:
 # atol, and by under atol where it is near 0
 BF16_RTOL, BF16_ATOL = 1e-2, 1e-4
 PARITY_TOL = 1e-4  # CUDA against CPU logits at the smoke size, float32
+# per-tick latencies: wall clock, so they differ between any two runs
+WALL_SERIES, WALL_SLOS = ("commit_ms", "commit_p99_ms"), ("commit_p99",)
 
 
 
@@ -1784,6 +1800,12 @@ def sharded_workload_breakdown(torch):
 # tests/test_torch_query_pipeline.py holds the hint; every other sample
 # field exactly
 PREDICTED_SAMPLE, BETA_PRED_RTOL = "beta_e", 2.5e-3
+# the audit trail's predictions, from the same float32 RLS (F2), card
+# against host: |card - host| <= max(rel * |host|, abs), the (rel, abs)
+# that tests/test_torch_telemetry.py holds the port to against the
+# reference
+AUDIT_PRED_TOL = {"beta_e_pred": (BETA_PRED_RTOL, 1.0), "mu_pred": (0.0, 1.5e-2),
+                  "slope": (0.0, 1e-6)}
 
 
 def _sharded_loop(device, decisions=None):
@@ -1865,6 +1887,214 @@ def sharded_cuda_vs_cpu(torch):
           f"on the host) equal, every sample field exactly but {PREDICTED_SAMPLE}, whose "
           f"largest relative gap is {beta_e_rel} (tolerance {BETA_PRED_RTOL}): "
           + json.dumps({k: v for k, v in cg.items() if k != "actions"}), flush=True)
+
+
+def _monitored_run(device, stream=None, **options):
+    """`run_scenario` at phase 10's deployment on `device`.  Records the
+    ticks into `stream` when it is an empty list, replays them when it
+    holds some.  Returns the report and the decisions taken as (action,
+    beta, reason)."""
+    from repro_torch.ingest.sources import StreamTick
+    from repro_torch.workloads import harness
+
+    taken = []
+
+    class Recording(harness.ScenarioSource):
+        def ticks(self):
+            for tick in super().ticks():
+                stream.append((tick.t, copy.deepcopy(tick.records)))
+                yield tick
+
+    class Replaying:
+        def __init__(self, *args, **kw):
+            self.dt = 1.0
+
+        def ticks(self):
+            for t, records in stream:
+                yield StreamTick(t, copy.deepcopy(records))
+
+    class Builder(harness.PipelineBuilder):
+        def build(self):
+            pipe = super().build()
+            pipe.controller.on_decision = lambda d: taken.append((d.action, d.beta, d.reason))
+            return pipe
+
+    saved = harness.ScenarioSource, harness.PipelineBuilder
+    if stream is not None:
+        harness.ScenarioSource = Replaying if stream else Recording
+    harness.PipelineBuilder = Builder
+    try:
+        rep = harness.run_scenario("flash_crowd", dict_compress=True, device=device,
+                                   **options)
+    finally:
+        harness.ScenarioSource, harness.PipelineBuilder = saved
+    return rep, taken
+
+
+def _steady(events):
+    """Detector events on the series that are not wall-clock."""
+    return [e for e in events if e["series"] not in WALL_SERIES]
+
+
+@contextlib.contextmanager
+def _host_seconds(spent, targets):
+    """Adds the seconds spent in each (class, method) of `targets` to
+    `spent[method]` inside the block."""
+    saved = [(cls, name, getattr(cls, name)) for cls, name in targets]
+
+    def timed(real, name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    for cls, name, real in saved:
+        setattr(cls, name, timed(real, name))
+    try:
+        yield spent
+    finally:
+        for cls, name, real in saved:
+            setattr(cls, name, real)
+
+
+def monitored_workload(torch, smi):
+    """Phase 27: the workload path with telemetry and the monitor on."""
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.telemetry import DRYRUN_REQUIRED_STAGES
+    from repro_torch.monitor import HealthMonitor
+    from repro_torch.telemetry import (AuditTrail, TelemetryRegistry, validate_chrome_trace,
+                                       write_chrome_trace, write_jsonl)
+
+    seen = {"ticks_with_records": 0, "encodes": 0, "commits": 0}
+
+    def count(ev):
+        if ev.kind == "tick" and ev.payload["raw"] > 0:
+            seen["ticks_with_records"] += 1
+        elif ev.kind in ("commit", "commit-failed"):
+            seen["encodes"] += 1
+            seen["commits"] += ev.kind == "commit"
+
+    stream = []
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, jsonl = f"{tmp}/trace.json", f"{tmp}/trace.jsonl"
+        reg = TelemetryRegistry()
+        build.launches.clear()
+        t0 = time.perf_counter()
+        with _host_seconds(collections.Counter(), [
+                (HealthMonitor, "on_event"), (AuditTrail, "record"),
+                (AuditTrail, "resolve")]) as spent:
+            rep, decisions = _monitored_run("cuda", stream, telemetry=reg, monitor=True,
+                                               trace=trace, trace_jsonl=jsonl, on_event=count)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(build.launches)
+        ok, msg = validate_chrome_trace(trace, DRYRUN_REQUIRED_STAGES + ("commit.wait",))
+        with open(jsonl) as f:
+            kinds = collections.Counter(json.loads(line)["type"] for line in f)
+        t0 = time.perf_counter()
+        write_chrome_trace(reg, trace)
+        write_jsonl(reg, jsonl)
+        export_s = time.perf_counter() - t0
+    # the host cost of the instrumentation: the monitor's and the audit
+    # trail's calls as timed on the path above, the exporters once, and
+    # the spans estimated, not timed on the path: an empty span's cost on
+    # this host times the spans the run opened
+    probe, n_probe = TelemetryRegistry(max_events=0), 20_000
+    t0 = time.perf_counter()
+    for _ in range(n_probe):
+        with probe.span("probe"):
+            pass
+    span_s = (time.perf_counter() - t0) / n_probe
+    cost_ms = {"monitor_on_event": spent["on_event"] * 1e3 / rep.ticks,
+               "audit_record_resolve": (spent["record"] + spent["resolve"]) * 1e3 / rep.ticks,
+               "spans_estimated": span_s * sum(st["count"] for st in reg.summary().values())
+               * 1e3 / rep.ticks,
+               "exporters_once": export_s * 1e3 / rep.ticks}
+    want = {"pattern_mine": seen["encodes"], "fused_upsert": 3 * seen["commits"]}
+    extra = launches.get("traffic_ids", 0) - seen["ticks_with_records"]
+    if extra not in (0, 1) or any(launches.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"monitored workload launches {launches}, expected {want} and "
+                             f"{seen['ticks_with_records']} or one more traffic_ids")
+    if not ok or kinds["audit"] != len(reg.audit):
+        raise AssertionError(f"monitored workload trace: {msg}; JSONL lines {dict(kinds)}")
+    if not (len(reg.audit) == rep.audit_decisions == len(decisions) == rep.ticks
+            and all(r.mu_real is not None for r in reg.audit)):
+        raise AssertionError(f"monitored workload: {len(reg.audit)} audit records "
+                             f"({rep.audit_decisions} in the report) for {len(decisions)} "
+                             f"decisions in {rep.ticks} ticks")
+    if rep.burst_onset_tick < 0 or not rep.slo_summary or rep.total_records == 0:
+        raise AssertionError(f"monitored workload: no burst onset or no SLOs: {rep.summary()}")
+
+    # the same run on the host on the card's records, its controller
+    # deciding for itself: nothing of the card's run is replayed but the
+    # records, which the card's sampler drew
+    host_reg = TelemetryRegistry()
+    host, host_decisions = _monitored_run("cpu", stream, telemetry=host_reg, monitor=True)
+
+    def audit(r):
+        return [(a.action, a.reason, a.beta, a.inputs, a.mu_real, a.beta_e_real)
+                for a in r.audit]
+
+    # each prediction's largest gap as a share of its tolerance
+    gaps = {k: max((abs(getattr(a, k) - getattr(b, k)) / max(rel * abs(getattr(b, k)), tol)
+                    for a, b in zip(reg.audit, host_reg.audit)), default=0.0)
+            for k, (rel, tol) in AUDIT_PRED_TOL.items()}
+    same = {
+        "decisions": decisions == host_decisions,
+        "records": (rep.total_records, rep.total_instructions, rep.raw_instructions,
+                    rep.dropped_inserts, rep.pattern_refs)
+        == (host.total_records, host.total_instructions, host.raw_instructions,
+            host.dropped_inserts, host.pattern_refs),
+        "audit": audit(reg) == audit(host_reg),
+        "predictions": max(gaps.values()) <= 1.0,
+        "events": _steady(rep.health_events) == _steady(host.health_events),
+        "slos": all(s == host.slo_summary[n] for n, s in rep.slo_summary.items()
+                    if n not in WALL_SLOS),
+    }
+    if not all(same.values()):
+        differing = sum(a != b for a, b in zip(decisions, host_decisions))
+        raise AssertionError(f"monitored workload: card and host differ: {same}; "
+                             f"{differing} of {len(decisions)} decisions differ; prediction "
+                             f"gaps {gaps} (tolerances {AUDIT_PRED_TOL})")
+
+    # wall time a tick, telemetry and the monitor off and on (off, on, on, off)
+    walls = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        t0 = time.perf_counter()
+        r, _ = _monitored_run("cuda", **({"telemetry": True, "monitor": True}
+                                            if mode == "on" else {}))
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3 / r.ticks)
+    off, on = statistics.mean(walls["off"]), statistics.mean(walls["on"])
+    onsets = collections.Counter(f"{e['series']}/{e['detector']}" for e in rep.health_events
+                                 if e["phase"] == "onset")
+    print("monitored workload: " + json.dumps({
+        "card": smi, "ticks": rep.ticks, "records": rep.total_records,
+        "commits": seen["commits"], "wall_s": wall_s, "trace": msg, "jsonl": dict(kinds),
+        "audit_records": len(reg.audit), "burst_onset_tick": rep.burst_onset_tick,
+        "health_events": len(rep.health_events), "onsets": dict(sorted(onsets.items())),
+        "slo_breaches": {n: s["breaches"] for n, s in rep.slo_summary.items()},
+        "controller_score": rep.controller_score,
+        "host_prediction_gaps": gaps, "host_prediction_tolerances": AUDIT_PRED_TOL,
+        "wall_ms_per_tick_off": walls["off"], "wall_ms_per_tick_on": walls["on"],
+        "wall_ms_per_tick_off_mean": off, "wall_ms_per_tick_on_mean": on,
+        "overhead_share": on / off - 1.0,
+        "host_ms_per_tick_of_instrumentation": cost_ms,
+        "span_us": span_s * 1e6,
+        "launches": {k: launches.get(k, 0) for k in ("fused_upsert", "traffic_ids",
+                                                     "pattern_mine")}}), flush=True)
+    print(f"monitored workload on {smi}: wall ms a tick off {off} on {on}; launches K1 "
+          f"{launches.get('fused_upsert', 0)} K4 {launches.get('traffic_ids', 0)} K5 "
+          f"{launches.get('pattern_mine', 0)}; the host, on the card's records, takes the "
+          f"same decisions and gives the same records, audit trail, predictions within "
+          f"{AUDIT_PRED_TOL}, non-wall-clock detector events "
+          f"and SLO breaches", flush=True)
+    return launches
 
 
 def _flash_tol(dtype, S, torch):
@@ -2335,6 +2565,7 @@ def main():
     _, ssm_launches, k8_prefill_ms = phase(24, serve_ssm, torch)
     phase(25, serve_cuda_vs_cpu, torch)
     phase(26, sharded_workload_breakdown, torch)
+    phase(27, monitored_workload, torch, smi)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["lanes"] == NODE_SWEEP[2]

@@ -1,7 +1,8 @@
 """`PipelineBuilder` — the fluent facade over the composable API.
 Counterpart of `repro.api.builder` (the core methods, extra record
 stages, the query path: the sketch stage, the query sink and
-sketch-guided control, GraphZip dictionary compression, and sharding).
+sketch-guided control, GraphZip dictionary compression, sharding, span
+telemetry with the controller audit trail, and the health monitor).
 
     pipe = (PipelineBuilder(IngestConfig(cpu_max=0.55), device="cuda")
             .with_source(BurstyTweetSource(seed=0))
@@ -32,7 +33,9 @@ from repro_torch.configs.paper_ingest import IngestConfig
 from repro_torch.core.buffer import BufferController
 from repro_torch.core.transform import MappingSpec
 from repro_torch.device import resolve
+from repro_torch.monitor import HealthMonitor
 from repro_torch.query.stage import QuerySink, SketchStage
+from repro_torch.telemetry import AuditTrail, TelemetryRegistry
 
 # placeholders in the stage list for stages constructed at build time
 _SKETCH_SLOT = object()
@@ -66,6 +69,9 @@ class PipelineBuilder:
         self._sketch_guided = False
         self._dict_stage: Optional[DictionaryStage] = None
         self._compression_kw = None
+        self._telemetry: Optional[TelemetryRegistry] = None
+        self._monitor = None
+        self._monitor_kw = None
 
     # ---- parts ----
     def with_source(self, source) -> "PipelineBuilder":
@@ -196,6 +202,41 @@ class PipelineBuilder:
         self._metrics = hub
         return self
 
+    def with_telemetry(self, registry: Optional[TelemetryRegistry] = None
+                       ) -> "PipelineBuilder":
+        """Span telemetry + controller audit trail: threads one
+        `TelemetryRegistry` through every layer (the MetricsHub's event
+        counters and loop spans, the transform, the sink's ingestor, the
+        sketch and dictionary stages, the snapshot maintainer) and gives
+        each controller an `AuditTrail` tagged with its shard.  Pass a
+        registry to share one across pipelines, or nothing to make one;
+        read it back via `pipe.telemetry` / `pipe.metrics.telemetry`."""
+        if registry is None or registry is True:
+            registry = TelemetryRegistry()
+        self._telemetry = registry
+        return self
+
+    def with_monitor(self, monitor=None, **kw) -> "PipelineBuilder":
+        """Online health monitoring: subscribe a
+        `repro_torch.monitor.HealthMonitor` to the pipeline's MetricsHub
+        and tap the telemetry registry for per-tick series (EWMA and
+        Page–Hinkley `HealthEvent`s, SLO error budgets with burn-rate
+        alerts, controller decision-quality scoring).  Implies
+        `with_telemetry()`.  Pass a configured monitor, or keyword args
+        for `HealthMonitor` (series, slos, cpu_max, on_tick); read it
+        back via `.health_monitor` (also `pipe.monitor` / `hub.monitor`
+        after build)."""
+        self._monitor = monitor
+        self._monitor_kw = dict(kw)
+        if self._telemetry is None:
+            self.with_telemetry()
+        return self
+
+    @property
+    def health_monitor(self):
+        """The `HealthMonitor` wired by `with_monitor` (after build())."""
+        return self._monitor
+
     def on_event(self, hook: Callable[[PipelineEvent], None]) -> "PipelineBuilder":
         self._hooks.append(hook)
         return self
@@ -236,7 +277,9 @@ class PipelineBuilder:
             consumer = MeasuredConsumer(sink.ingestor)
         elif consumer is None:
             consumer = SimulatedConsumer()
-        metrics = self._metrics or MetricsHub()
+        metrics = self._metrics or MetricsHub(telemetry=self._telemetry)
+        if self._metrics is not None and self._telemetry is not None:
+            metrics.telemetry = self._telemetry
         for h in self._hooks:
             metrics.subscribe(h)
         qs_opts = self._query_sink_opts
@@ -303,7 +346,37 @@ class PipelineBuilder:
                         c.observe_sketch(ev.payload)
 
             metrics.subscribe(_guide)
+        if self._telemetry is not None:
+            self._wire_telemetry(pipe, transform, sink, controllers)
+        if self._monitor is not None or self._monitor_kw is not None:
+            if self._monitor is None:
+                self._monitor = HealthMonitor(**self._monitor_kw)
+            self._monitor.bind(metrics, cfg=self.cfg)
+            metrics.monitor = self._monitor
+            pipe.monitor = self._monitor
         return pipe
+
+    def _wire_telemetry(self, pipe, transform, sink, controllers):
+        """Thread the registry through every instrumented layer."""
+        reg = self._telemetry
+        if hasattr(transform, "telemetry"):
+            transform.telemetry = reg  # a CompressingTransform forwards it
+        for st in pipe.stages:  # SketchStage, DictionaryStage, custom stages
+            if hasattr(st, "telemetry"):
+                st.telemetry = reg
+        # the sink chain: the QuerySink wrapper, its maintainer, and the
+        # GraphStoreSink's ingestor underneath (commit sub-spans)
+        if hasattr(sink, "telemetry"):
+            sink.telemetry = reg
+        maintainer = getattr(sink, "maintainer", None)
+        if maintainer is not None:
+            maintainer.telemetry = reg
+        ingestor = getattr(sink, "ingestor", None)
+        if ingestor is not None and hasattr(ingestor, "telemetry"):
+            ingestor.telemetry = reg
+        # one audit trail per controller, tagged with its shard
+        for si, c in enumerate(controllers):
+            c.audit = AuditTrail(reg, shard=si)
 
     def run(self, max_ticks: int = 300):
         """Build and run in one call (source must be set)."""

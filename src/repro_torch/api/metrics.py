@@ -59,6 +59,10 @@ class MetricsHub:
         self.telemetry = telemetry if telemetry is not None \
             else TelemetryRegistry(enabled=False)
         self._hooks: List[Callable[[PipelineEvent], None]] = []
+        # the attached repro_torch.monitor.HealthMonitor, when one is
+        # wired (PipelineBuilder.with_monitor); it subscribes like any
+        # other hook, and this reference lets exporters find it
+        self.monitor = None
 
     @property
     def counters(self) -> collections.Counter:

@@ -74,6 +74,7 @@ def controlled_tick(buf: BufferControlStage, transform, sink, consumer,
     cdt = dt if consume_dt is None else consume_dt
     tel = hub.telemetry
     pm = buf.perfmon
+    aud = buf.controller.audit
     with tel.span("decide"):
         dec = buf.decide(len(buf) * 4.0, 0.0, now=now)
 
@@ -104,6 +105,9 @@ def controlled_tick(buf: BufferControlStage, transform, sink, consumer,
                     # input (GraphZip dictionary compression)
                     pm.observe_compression(out["dict_hit_rate"], cr)
             pm.observe_mu(mu)
+            if aud is not None:
+                # predicted-vs-realized for the audit trail
+                aud.resolve(mu, size)
             pm.observe_bucket(rho, density, size)
             pm.observe_mu_outcome(state["last_mu"], state["last_beta_e"], mu)
             state["last_beta_e"], state["last_mu"] = size, mu
@@ -122,12 +126,16 @@ def controlled_tick(buf: BufferControlStage, transform, sink, consumer,
             hub.emit("spill", now, depth=buf.spill_depth)
         mu = consumer.consume(0, cdt, now=now)
         pm.observe_mu(mu)
+        if aud is not None:
+            aud.resolve(mu, 0.0)
         hub.emit("throttle", now)
         hub.record(PerfSample(now, mu, 0.0, 0.0, 0, dec.beta_e, *pm.velocity(),
                               "throttle", buf.spill_depth, 1.0, consumer.delay_s))
     else:  # hold
         mu = consumer.consume(0, cdt, now=now)
         pm.observe_mu(mu)
+        if aud is not None:
+            aud.resolve(mu, 0.0)
         hub.emit("hold", now, buffered=len(buf))
         hub.record(PerfSample(now, mu, 0.0, 0.0, len(buf), dec.beta_e, *pm.velocity(),
                               "hold", buf.spill_depth, 1.0, consumer.delay_s))

@@ -268,10 +268,17 @@ class BufferController:
         self.decision_counts: collections.Counter = collections.Counter()
         self.pressure_throttles = 0
         self.on_decision: Optional[Callable[[ControllerDecision], None]] = None
+        # audit trail (repro_torch.telemetry.AuditTrail): when attached,
+        # every decision is recorded with the full PerfMon input vector
+        # and later resolved with the realized (mu, beta_e) by the tick loop
+        self.audit = None
 
     def decide(self, edge_table_size: float, density: float,
                now: Optional[float] = None) -> ControllerDecision:
         cfg = self.cfg
+        # dropped_inserts is consumed by the pressure throttle below;
+        # capture it first so the audit trail sees what decide() saw
+        dropped_in = self.perfmon.dropped_inserts
         beta_e, mu_exp, s = self.perfmon.predict(edge_table_size, density)
         beta = self.beta
         action = "push"
@@ -308,6 +315,10 @@ class BufferController:
         self.beta = max(cfg.beta_min, min(beta, cfg.beta_max))
         dec = ControllerDecision(action, self.beta, beta_e, mu_exp, s, reason)
         self.decision_counts[action] += 1
+        if self.audit is not None:
+            self.audit.record(dec, self.perfmon, now,
+                              spill_depth=self.spill.depth,
+                              dropped=dropped_in)
         if self.on_decision is not None:
             self.on_decision(dec)
         return dec

@@ -5,6 +5,7 @@
   PYTHONPATH=src python -m repro_torch.launch.workload --scenario flash_crowd --shards 4 \
       --sketch-control
   PYTHONPATH=src python -m repro_torch.launch.workload --dryrun --device cpu   # smoke, on the host
+  PYTHONPATH=src python -m repro_torch.launch.workload --trace-out trace.json
 
 Counterpart of `repro.launch.workload`, with the same flags and
 printout, plus `--device {cuda,cpu}` (default the card).  Drives the
@@ -17,8 +18,9 @@ transition timeline, table-pressure throttles and, with
 (`ShardedPipeline`), and the timeline then names each transition's
 shard.  `--dryrun` is the smoke run: a small-capacity short run that
 exits non-zero if the harness produces no records or the report does
-not serialise.  `--trace-out` raises until ROADMAP §1 Slice E brings
-span telemetry.
+not serialise.  `--trace-out` turns on span telemetry and the
+controller audit trail and writes a Perfetto-loadable Chrome trace of
+the run (`launch.telemetry` prints the full summary view).
 """
 import argparse
 import json
@@ -55,8 +57,10 @@ def _parser():
     ap.add_argument("--max-transitions", type=int, default=12,
                     help="timeline rows to print")
     ap.add_argument("--trace-out", default=None,
-                    help="write a Chrome trace of the run here (span "
-                         "telemetry; not in the port yet)")
+                    help="write a Perfetto-loadable Chrome trace of the "
+                         "run here (enables span telemetry + the "
+                         "controller audit trail; see launch.telemetry "
+                         "for the full summary view)")
     ap.add_argument("--json", default=None, help="write the report dict here")
     ap.add_argument("--dryrun", action="store_true",
                     help="tiny end-to-end run (CI smoke)")
@@ -111,6 +115,10 @@ def run(argv=None, on_event=None) -> Tuple[int, WorkloadReport]:
         with open(args.json, "w") as f:
             json.dump(rep.to_dict(), f, indent=2)
         print(f"(wrote report to {args.json})")
+
+    if args.trace_out:
+        print(f"(wrote Chrome trace to {args.trace_out} — load in "
+              f"ui.perfetto.dev or chrome://tracing)")
 
     if args.dryrun:
         ok = rep.total_records > 0 and bool(json.dumps(rep.to_dict()))

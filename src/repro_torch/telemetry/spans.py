@@ -185,7 +185,7 @@ class TelemetryRegistry:
     * ``counters`` — a plain ``collections.Counter`` that is ALWAYS
       live (MetricsHub event counts ride here even when span telemetry
       is off; incrementing a dict int is the pre-telemetry cost).
-    * ``audit`` — the controller decision trail (`repro.telemetry.audit`
+    * ``audit`` — the controller decision trail (`repro_torch.telemetry.audit`
       appends; stored here so exporters see one object).
     * ``child(shard)`` — shard-tagged view sharing this registry's
       span/event/audit storage but owning its own ``counters``.
@@ -200,7 +200,7 @@ class TelemetryRegistry:
         self.events: List[Tuple[str, Optional[int], int, int]] = []
         self.max_events = max_events
         self.events_dropped = 0
-        self.audit: list = []  # AuditRecord list (repro.telemetry.audit)
+        self.audit: list = []  # AuditRecord list (repro_torch.telemetry.audit)
         self.max_audit = max_events
         self.t0_ns = time.perf_counter_ns()
 
@@ -297,7 +297,7 @@ class TelemetryRegistry:
 class SeriesTap:
     """Incremental reader over a registry's cumulative state.
 
-    The online-monitoring primitive (repro.monitor): histograms and
+    The online-monitoring primitive (repro_torch.monitor): histograms and
     counters accumulate for the whole run, but a standing detector
     needs *per-interval* values.  A tap remembers the last snapshot it
     took of each series and returns exact deltas:

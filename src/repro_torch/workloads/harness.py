@@ -9,11 +9,13 @@ GraphZip dictionary's references and hit rate.  The CLI
 (`python -m repro_torch.launch.workload`) calls it.
 
 The port runs one shard or several (`ShardedPipeline`), optionally
-sketch-guided and with dictionary compression.  The reference's other
-options (telemetry, monitoring, lineage, traces, faults, retry and
-checkpoints) raise `NotImplementedError` until ROADMAP §1 Slice E
-brings them.  The report keeps every field of the reference's, at its
-inert default where the port has no such path yet.
+sketch-guided and with dictionary compression, with span telemetry and
+the controller audit trail (`telemetry`, and the `trace` and
+`trace_jsonl` exporters) and the health monitor (`monitor`).  The
+reference's other options (lineage, faults, retry and checkpoints)
+raise `NotImplementedError` until ROADMAP §1 Slice E.3 and E.4 bring
+them.  The report keeps every field of the reference's, at its inert
+default where the port has no such path yet.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ import torch
 from repro_torch.api import PipelineBuilder
 from repro_torch.configs.paper_ingest import IngestConfig
 from repro_torch.device import resolve
+from repro_torch.monitor import HealthMonitor, default_slos
+from repro_torch.telemetry import TelemetryRegistry, write_chrome_trace, write_jsonl
 from repro_torch.workloads.scenarios import Scenario, get_scenario
 from repro_torch.workloads.source import ScenarioSource
 
@@ -76,19 +80,21 @@ class WorkloadReport:
     resumed_from_tick: int = -1
     store_digest: str = ""
     snapshot_digest: str = ""
-    # telemetry (not in the port yet)
+    # telemetry (empty when the registry is off)
     telemetry_enabled: bool = False
+    # per-stage latency breakdown, aggregated across shards:
+    # {stage: {count, mean_ms, p50_ms, p95_ms, p99_ms, max_ms, total_s}}
     stage_latency_ms: Dict[str, Dict[str, float]] = \
         dataclasses.field(default_factory=dict)
-    audit_decisions: int = 0
-    # health monitoring (not in the port yet)
+    audit_decisions: int = 0     # controller audit-trail records
+    # health monitoring (inert defaults when off)
     monitor_enabled: bool = False
     health_events: List[Dict] = dataclasses.field(default_factory=list)
-    burst_onset_tick: int = -1
+    burst_onset_tick: int = -1   # first "rate" onset (-1 = none detected)
     slo_summary: Dict = dataclasses.field(default_factory=dict)
-    slo_breaches: int = 0
-    slo_alerts: int = 0
-    controller_score: float = 1.0
+    slo_breaches: int = 0        # SLO-breaching ticks across all specs
+    slo_alerts: int = 0          # multi-window burn-rate alert onsets
+    controller_score: float = 1.0  # mean per-decision quality in [0,1]
     decision_quality: Dict = dataclasses.field(default_factory=dict)
     # lineage / freshness (not in the port yet)
     lineage_enabled: bool = False
@@ -132,7 +138,33 @@ class WorkloadReport:
                f"hit_rate={self.dict_hit_rate:.3f} "
                f"commit_ms={self.commit_ms_mean:.2f}"
                if self.dict_compress else "")
+            + (self._stage_summary() if self.telemetry_enabled else "")
+            + (self._monitor_summary() if self.monitor_enabled else "")
         )
+
+    def _monitor_summary(self) -> str:
+        onset = f"burst_onset_tick={self.burst_onset_tick}" \
+            if self.burst_onset_tick >= 0 else "no burst onset"
+        missed = [n for n, s in self.slo_summary.items()
+                  if not s.get("met", True)]
+        slos = f"{len(self.slo_summary)} SLOs" \
+            + (f" ({len(missed)} missed: {', '.join(sorted(missed))})"
+               if missed else " (all met)")
+        return (f"\nmonitor: {len(self.health_events)} health events, "
+                f"{onset} | {slos}, {self.slo_breaches} breaching ticks, "
+                f"{self.slo_alerts} burn alerts | controller_score="
+                f"{self.controller_score:.4f}")
+
+    def _stage_summary(self, top: int = 6) -> str:
+        if not self.stage_latency_ms:
+            return "\ntelemetry: on (no spans recorded)"
+        ranked = sorted(self.stage_latency_ms.items(),
+                        key=lambda kv: -kv[1].get("total_s", 0.0))[:top]
+        rows = "  ".join(
+            f"{name}: p50={st['p50_ms']:.2f} p95={st['p95_ms']:.2f}ms"
+            for name, st in ranked)
+        return (f"\ntelemetry: {len(self.stage_latency_ms)} stages, "
+                f"{self.audit_decisions} audited decisions | {rows}")
 
 
 def _timeline(samples: Dict, actions: List[str], shard: int) -> List[Dict]:
@@ -147,19 +179,17 @@ def _timeline(samples: Dict, actions: List[str], shard: int) -> List[Dict]:
     return out
 
 
-def _unsupported(telemetry, monitor, lineage, trace, trace_jsonl,
-                 lineage_jsonl, fault_plan, retry, checkpoint_dir, resume) -> None:
+def _unsupported(lineage, lineage_jsonl, fault_plan, retry, checkpoint_dir,
+                 resume) -> None:
     """Raise for the reference's options the port does not have yet."""
-    slice_e = {"telemetry": telemetry, "monitor": monitor, "lineage": lineage,
-               "trace": trace, "trace_jsonl": trace_jsonl,
-               "lineage_jsonl": lineage_jsonl, "fault_plan": fault_plan,
-               "retry": retry,
-               "checkpoint_dir": checkpoint_dir, "resume": resume}
-    asked = [k for k, v in slice_e.items() if v not in (None, False)]
+    later = {"lineage": lineage, "lineage_jsonl": lineage_jsonl,
+             "fault_plan": fault_plan, "retry": retry,
+             "checkpoint_dir": checkpoint_dir, "resume": resume}
+    asked = [k for k, v in later.items() if v not in (None, False)]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: the ops layer (telemetry, monitor, lineage, "
-            f"resilience) comes to the port with ROADMAP §1 Slice E")
+            f"{', '.join(asked)}: lineage and resilience come to the port "
+            f"with ROADMAP §1 Slice E.3 and E.4")
 
 
 class _Tally:
@@ -251,12 +281,28 @@ def run_scenario(
     `node_cap`/`edge_cap` shrink the store; `shards` > 1 partitions the
     stream by user over that many controllers (`ShardedPipeline`);
     `dict_compress` turns on the GraphZip dictionary-compression path
-    (`with_compression`).  The options of later slices raise
-    `NotImplementedError` (module docstring)."""
+    (`with_compression`).
+
+    `telemetry` turns on span telemetry + the controller audit trail
+    (pass True, or a `repro_torch.telemetry.TelemetryRegistry` to keep
+    for inspection); `trace` writes a Perfetto-loadable Chrome trace
+    there after the run and `trace_jsonl` the flat JSONL sink; either
+    implies telemetry.  The report then carries the per-stage
+    p50/p95/p99 latency breakdown (`stage_latency_ms`).
+
+    `monitor` turns on online health monitoring (pass True, or a
+    configured `repro_torch.monitor.HealthMonitor` to keep for
+    inspection) and implies telemetry.  The report then carries the
+    detector `health_events` (with `burst_onset_tick`), the per-SLO
+    budget/burn summary and the controller decision-quality score
+    (`controller_score`); every audit record gains its `quality`
+    verdict in place.
+
+    The options of later slices raise `NotImplementedError` (module
+    docstring)."""
     if shards < 1:
         raise ValueError("shards must be >= 1")
-    _unsupported(telemetry, monitor, lineage, trace, trace_jsonl,
-                 lineage_jsonl, fault_plan, retry, checkpoint_dir, resume)
+    _unsupported(lineage, lineage_jsonl, fault_plan, retry, checkpoint_dir, resume)
     scn = get_scenario(scenario) if isinstance(scenario, str) else scenario
     ticks = int(ticks if ticks is not None else scn.ticks)
     b, src, tally = scenario_builder(
@@ -264,6 +310,17 @@ def run_scenario(
         sketch_guided=sketch_guided, dict_compress=dict_compress,
         dict_capacity=dict_capacity, node_cap=node_cap, edge_cap=edge_cap,
         shards=shards, device=device)
+    reg = None
+    if telemetry or trace or trace_jsonl or monitor:
+        reg = telemetry if isinstance(telemetry, TelemetryRegistry) \
+            else TelemetryRegistry()
+        b = b.with_telemetry(reg)
+    mon = None
+    if monitor:
+        mon = monitor if isinstance(monitor, HealthMonitor) \
+            else HealthMonitor(slos=default_slos(cpu_max=b.cfg.cpu_max,
+                                                 theta2=b.cfg.theta2))
+        b = b.with_monitor(mon)
     if on_event is not None:
         b = b.on_event(on_event)
     pipe = b.build()
@@ -290,6 +347,20 @@ def run_scenario(
         counts[a] = counts.get(a, 0) + 1
     ingestor = pipe.sink.ingestor
     commit_ms = [1e3 * c.busy_s for c in ingestor.commits if c.ok]
+    mon_report: Dict = {}
+    if mon is not None:
+        # finish BEFORE the exporters run, so that every audit record
+        # already carries its quality verdict in the trace files
+        mon.finish()
+        mon_report = mon.report()
+    stage_latency: Dict[str, Dict[str, float]] = {}
+    if reg is not None:
+        stage_latency = reg.summary()
+        if trace:
+            write_chrome_trace(reg, trace, meta={
+                "scenario": scn.name, "seed": seed, "shards": shards})
+        if trace_jsonl:
+            write_jsonl(reg, trace_jsonl)
     return WorkloadReport(
         scenario=scn.name,
         seed=seed,
@@ -326,4 +397,15 @@ def run_scenario(
         archive_remaining=ingestor.archive_depth,
         pool_overflows=ingestor.pool_overflows,
         degraded_events=int(pipe.metrics.counters["degraded"]),
+        telemetry_enabled=reg is not None,
+        stage_latency_ms=stage_latency,
+        audit_decisions=len(reg.audit) if reg is not None else 0,
+        monitor_enabled=mon is not None,
+        health_events=mon_report.get("health_events", []),
+        burst_onset_tick=mon_report.get("burst_onset_tick", -1),
+        slo_summary=mon_report.get("slo", {}),
+        slo_breaches=mon_report.get("slo_breaches", 0),
+        slo_alerts=mon_report.get("slo_alerts", 0),
+        controller_score=mon_report.get("controller_score", 1.0),
+        decision_quality=mon_report.get("quality", {}),
     )

@@ -1,7 +1,9 @@
 """The port stands alone and does not hide the device.
 
   * Importing every `repro_torch` module loads neither `jax` nor the
-    reference package `repro` (checked in a fresh interpreter), and no
+    reference package `repro` (checked in a fresh interpreter; the walk
+    includes the ops layer: `telemetry.audit`, `telemetry.export`, the
+    `monitor` package and `launch.telemetry`/`launch.monitor`), and no
     source file under `src/repro_torch` imports either.
   * Entry points default to the card: without one, a run that did not
     ask for the CPU raises instead of carrying on on the host.
@@ -28,6 +30,11 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+ops = {"repro_torch.telemetry.audit", "repro_torch.telemetry.export", "repro_torch.monitor",
+       "repro_torch.monitor.detectors", "repro_torch.monitor.slo", "repro_torch.monitor.quality",
+       "repro_torch.monitor.monitor", "repro_torch.monitor.export",
+       "repro_torch.launch.telemetry", "repro_torch.launch.monitor"}
+assert ops <= set(names), sorted(ops - set(names))
 print(len(names), bad)
 """
 
@@ -43,7 +50,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                          env=_env(), cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 55 and bad == "[]", out.stdout
+    assert int(n) >= 85 and bad == "[]", out.stdout
 
 
 def test_no_port_source_imports_jax_or_the_reference():
@@ -89,6 +96,23 @@ def test_workload_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatc
     assert code == 0 and rep.total_records > 0 and rep.dict_compress
     code, rep = workload.run(["--dryrun", "--ticks", "8", "--device", "cpu", "--shards", "2"])
     assert code == 0 and rep.total_records > 0 and rep.shards == 2
+
+
+@pytest.mark.parametrize("name", ["telemetry", "monitor"])
+def test_ops_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch, tmp_path, capsys,
+                                                                 name):
+    import importlib
+
+    cli = importlib.import_module(f"repro_torch.launch.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--dryrun", "--ticks", "2"])
+    trace = str(tmp_path / "t.json")
+    argv = ["--dryrun", "--ticks", "40", "--device", "cpu", "--shards", "2"]
+    code, rep, out = cli.run(argv + (["--trace-out", trace] if name == "telemetry" else []))
+    assert code == 0 and rep.total_records > 0 and rep.shards == 2 and rep.telemetry_enabled
+    assert rep.monitor_enabled == (name == "monitor")
+    assert "dryrun ok" in capsys.readouterr().out
 
 
 def test_serve_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch):

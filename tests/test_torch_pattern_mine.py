@@ -34,6 +34,18 @@ from repro_torch.kernels import pattern_mine as PM
 STAR_MIN, HOT_MIN = 4, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The kernel's emulation runs thousands of torch ops on tensors of
+    up to 65,536 lanes.  On torch's intra-op threads such ops wait for
+    every thread, and when the test run's workers share the cores they
+    stall; one thread a worker keeps them at one core's speed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ids(rng, k, narrow):
     """k distinct nonzero uint64 ids: below 2^27 (packed keys) or wide."""
     hi = (1 << 27) if narrow else 2**64 - 1

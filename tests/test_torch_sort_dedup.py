@@ -29,6 +29,18 @@ from repro_torch.kernels import build, edge_dedup, ops, ref
 U32_MAX = 2**32 - 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plan emulations run thousands of torch ops on tensors of up
+    to 2^20 lanes.  On torch's intra-op threads such ops wait for every
+    thread, and when the test run's workers share the cores they stall;
+    one thread a worker keeps them at one core's speed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _key_set(rng, n, kind):
     """n uint32 keys of one kind; the random kinds hold 0xFFFFFFFF."""
     if kind == "equal":

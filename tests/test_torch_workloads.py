@@ -51,7 +51,9 @@ WALL_FIELDS = ("wall_s", "records_per_wall_s", "commit_ms_mean")
 
 
 class ReplayController(BufferController):
-    """Takes the reference's decisions, tick by tick, in place of its own."""
+    """Takes the reference's decisions, tick by tick, in place of its own.
+    The audit trail records the controller's own decision first, so the
+    open record is rewritten to the one taken."""
 
     def __init__(self, cfg, decisions, **kw):
         super().__init__(cfg, **kw)
@@ -59,9 +61,12 @@ class ReplayController(BufferController):
 
     def decide(self, edge_table_size, density, now=None):
         dec = super().decide(edge_table_size, density, now)
-        action, beta = next(self._decisions)
+        action, beta, reason = next(self._decisions)
         self.beta = beta
-        return dataclasses.replace(dec, action=action, beta=beta)
+        rec = None if self.audit is None else self.audit._open
+        if rec is not None:
+            rec.action, rec.beta, rec.reason = action, beta, reason
+        return dataclasses.replace(dec, action=action, beta=beta, reason=reason)
 
 
 class ReplaySource:
@@ -75,7 +80,10 @@ class ReplaySource:
             yield StreamTick(t, copy.deepcopy(records))
 
 
-def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False):
+def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False, **options):
+    """The reference's `run_scenario` (`options` passed on), recording
+    its ticks, each shard's (action, beta, reason) decisions, the
+    built pipeline, its store and its dictionary."""
     rec = {"ticks": [], "decisions": [[] for _ in range(shards)]}
 
     class RecordingSource(RefScenarioSource):
@@ -89,7 +97,7 @@ def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False):
             pipe = super().build()
             ctrls = [s.controller for s in pipe.shards] if shards > 1 else [pipe.controller]
             for c, dec in zip(ctrls, rec["decisions"]):
-                c.on_decision = lambda d, dec=dec: dec.append((d.action, d.beta))
+                c.on_decision = lambda d, dec=dec: dec.append((d.action, d.beta, d.reason))
             rec["pipe"], rec["dict"] = pipe, self.dictionary_stage
             return pipe
 
@@ -100,7 +108,7 @@ def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False):
             rec["report"] = ref_harness.run_scenario(
                 SCENARIO, ticks=TICKS, seed=SEED, dict_compress=dict_compress, shards=shards,
                 sketch_guided=sketch_guided,
-                spill_dir=str(tmp / f"ref_{dict_compress}_{shards}"), **CAPS)
+                spill_dir=str(tmp / f"ref_{dict_compress}_{shards}"), **CAPS, **options)
             store = rec["pipe"].store
             rec["store"] = {f.name: np.asarray(getattr(store, f.name))
                             for f in dataclasses.fields(store)}
@@ -133,7 +141,9 @@ def _replaying(mp, tmp, ref):
             got["pipe"] = super().build()
             if len(ref["decisions"]) > 1:
                 for si, shard in enumerate(got["pipe"].shards):
-                    shard.controller = replay(si)
+                    ctrl = replay(si)
+                    ctrl.audit = shard.controller.audit  # the trail PipelineBuilder attached
+                    shard.controller = ctrl
             got["dict"] = self.dictionary_stage
             return got["pipe"]
 
@@ -239,9 +249,32 @@ def test_sharded_run_scenario_under_replay_matches_reference(tmp_path_factory, m
 
 
 @pytest.mark.parametrize("option", [
-    dict(trace_jsonl="x.jsonl"), dict(telemetry=True), dict(monitor=True), dict(lineage=True),
-    dict(trace="x.json"), dict(fault_plan=object()), dict(retry=True),
-    dict(checkpoint_dir="ckpt"), dict(resume=True)])
+    dict(lineage=True), dict(lineage_jsonl="x.jsonl"), dict(fault_plan=object()),
+    dict(retry=True), dict(checkpoint_dir="ckpt"), dict(resume=True)])
 def test_options_of_later_slices_raise(option):
     with pytest.raises(NotImplementedError, match="Slice"):
         harness.run_scenario(SCENARIO, ticks=2, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", ["telemetry", "monitor", "trace", "trace_jsonl"])
+def test_options_of_this_slice_run_and_fill_the_report(option, tmp_path):
+    """telemetry, monitor, trace and trace_jsonl run on the host (the
+    whole comparison with the reference is in test_torch_telemetry.py
+    and test_torch_monitor.py): each turns telemetry on, and the report
+    carries the stage latencies and one audit record a decision; the
+    monitor adds its verdict, and the exporters their files."""
+    value = {"telemetry": True, "monitor": True, "trace": str(tmp_path / "t.json"),
+             "trace_jsonl": str(tmp_path / "t.jsonl")}[option]
+    rep = harness.run_scenario(SCENARIO, ticks=8, device="cpu", **CAPS, **{option: value})
+    assert rep.telemetry_enabled and rep.audit_decisions == 8
+    assert {"tick", "filter", "decide"} <= set(rep.stage_latency_ms)
+    assert rep.monitor_enabled == (option == "monitor")
+    if option == "monitor":
+        assert set(rep.slo_summary) == {"commit_p99", "no_drops", "throughput_floor",
+                                        "mu_bounded", "freshness"}
+        assert rep.decision_quality["decisions"] == 8 and 0.0 <= rep.controller_score <= 1.0
+        assert "monitor:" in rep.summary()
+    if option in ("trace", "trace_jsonl"):
+        with open(value) as f:
+            assert f.read().strip()
+    assert "telemetry:" in rep.summary()
