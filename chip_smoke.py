@@ -167,7 +167,19 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      the trail's predictions within F2's tolerances, detector events on
      the series that are not wall-clock and SLO breaches but
      `commit_p99`'s; and times the card's run with telemetry and the
-     monitor off and on, in the order off, on, on, off.
+     monitor off and on, in the order off, on, on, off;
+ 28. runs the ingest deployment (2^20/2^21, 60 records/s, 5x bursts, 120
+     ticks, controlled) at 32-bit keys through `PipelineBuilder(...,
+     key_dtype=torch.int32)` with the query sink (D=4, W=512) and GraphZip
+     on, counters set to 0 just before and read just after (K1, K3 and
+     K5 launches by width: no 64-bit instance runs), then on the host
+     replaying the card's decisions: equal records, commits, drops,
+     store, sketch and dictionary arrays; holds K1's 32-bit instance to
+     its plain version bit for bit under every cluster width at phase
+     1's node sweep, on a table at load 0.7 (budget 64) and at 512 lanes,
+     and K5's at 512 and 8,192 lanes (every kind of phase 12's batches,
+     ids cut to 32 bits) and on the path's largest mined batch; times
+     both beside the 64-bit instances on the same keys zero-extended.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
 JSON line.  It exits non-zero without a CUDA device or without the port
@@ -287,11 +299,13 @@ WALL_SERIES, WALL_SLOS = ("commit_ms", "commit_p99_ms"), ("commit_p99",)
 
 
 
-def _random_keys(rng, n):
-    """n distinct nonzero uint64 keys, about half with bit 63 set, as int64 bits."""
-    keys = np.unique(rng.integers(1, 2**64 - 1, size=int(n * 1.01) + 16, dtype=np.uint64))
+def _random_keys(rng, n, bits=64):
+    """n distinct nonzero keys of `bits` (64 or 32), about half with the
+    top bit set, as int64 or int32 bits."""
+    top, signed = (2**64 - 1, np.int64) if bits == 64 else (2**32 - 1, np.int32)
+    keys = np.unique(rng.integers(1, top, size=int(n * 1.01) + 16, dtype=np.uint64))
     rng.shuffle(keys)
-    return keys[:n].view(np.int64)
+    return keys[:n].astype(np.uint64 if bits == 64 else np.uint32).view(signed)
 
 
 def _time_ms(torch, fn, base, args, reps):
@@ -318,18 +332,19 @@ def _time_ms(torch, fn, base, args, reps):
 
 def _least_bytes(torch, probe_hash, keys, valid, slot, is_new, cap, probes):
     """Bytes the sweep must move on these inputs: keys and valid read,
-    slot and is_new written, the probe budget, one 8-byte table slot
-    read per probe round each valid lane takes, one written per new key.
-    A placed lane took (slot - first candidate) mod cap + 1 rounds (cap
-    is a power of two), a dropped lane the whole budget.  Returns (bytes,
-    probe reads, the most rounds a lane took)."""
-    n = keys.shape[0]
+    slot and is_new written, the probe budget, one table slot (a key: 8
+    or 4 bytes) read per probe round each valid lane takes, one written
+    per new key.  A placed lane took (slot - first candidate) mod cap + 1
+    rounds (cap is a power of two), a dropped lane the whole budget.
+    Returns (bytes, probe reads, the most rounds a lane took)."""
+    n, kb = keys.shape[0], keys.element_size()
     first = probe_hash(keys, cap, 0)
     rounds = torch.where(slot >= 0, (slot.long() - first) % cap + 1,
                          torch.full_like(first, probes))[valid]
     reads = int(rounds.sum())
     max_rounds = int(rounds.max()) if rounds.numel() else 0
-    return n * (8 + 1) + n * (4 + 1) + 4 + 8 * reads + 8 * int(is_new.sum()), reads, max_rounds
+    return (n * (kb + 1) + n * (4 + 1) + 4 + kb * reads + kb * int(is_new.sum()), reads,
+            max_rounds)
 
 
 def upsert_tables(torch, dev, rng, cap, lanes, loads):
@@ -1808,20 +1823,16 @@ AUDIT_PRED_TOL = {"beta_e_pred": (BETA_PRED_RTOL, 1.0), "mu_pred": (0.0, 1.5e-2)
                   "slope": (0.0, 1e-6)}
 
 
-def _sharded_loop(device, decisions=None):
-    """The sharded loop of phase 19 on `device`: returns (pipe, report,
-    dictionary stage, per-shard decisions).  With `decisions`, each
-    shard's controller replays them in place of its own."""
+def _replaying(cfg, seq, device):
+    """A BufferController on `device` that takes the (action, beta) of
+    `seq`, decision by decision, in place of its own."""
     import dataclasses
 
-    from repro_torch.api import PipelineBuilder
-    from repro_torch.configs.paper_ingest import IngestConfig
     from repro_torch.core.buffer import BufferController
-    from repro_torch.ingest.sources import BurstyTweetSource
 
     class Replay(BufferController):
-        def __init__(self, cfg, seq, **kw):
-            super().__init__(cfg, **kw)
+        def __init__(self):
+            super().__init__(cfg, device=device)
             self._seq = iter(seq)
 
         def decide(self, size, density, now=None):
@@ -1830,6 +1841,17 @@ def _sharded_loop(device, decisions=None):
             self.beta = beta
             return dataclasses.replace(dec, action=action, beta=beta)
 
+    return Replay()
+
+
+def _sharded_loop(device, decisions=None):
+    """The sharded loop of phase 19 on `device`: returns (pipe, report,
+    dictionary stage, per-shard decisions).  With `decisions`, each
+    shard's controller replays them in place of its own."""
+    from repro_torch.api import PipelineBuilder
+    from repro_torch.configs.paper_ingest import IngestConfig
+    from repro_torch.ingest.sources import BurstyTweetSource
+
     cfg = IngestConfig(store_nodes=1 << 12, store_edges=1 << 14)
     b = (PipelineBuilder(cfg, device=device).with_source(BurstyTweetSource(seed=0))
          .with_compression(capacity=4096).sharded(2))
@@ -1837,7 +1859,7 @@ def _sharded_loop(device, decisions=None):
     seen = [[] for _ in pipe.shards]
     for si, shard in enumerate(pipe.shards):
         if decisions is not None:
-            shard.controller = Replay(cfg, decisions[si], device=device)
+            shard.controller = _replaying(cfg, decisions[si], device)
         shard.controller.on_decision = lambda d, si=si: seen[si].append((d.action, d.beta))
     rep = pipe.run(max_ticks=40)
     return pipe, rep, b.dictionary_stage, seen
@@ -2095,6 +2117,207 @@ def monitored_workload(torch, smi):
           f"{AUDIT_PRED_TOL}, non-wall-clock detector events "
           f"and SLO breaches", flush=True)
     return launches
+
+
+# Phase 28: the 32-bit key path (the reference's default width, uint32 keys
+# without x64).  K1 at phase 1's node sweep, on a table past 0.6 load (the
+# store's budget doubles there) and at 512 lanes; K5 at 512 and 8,192 lanes
+# and the path's largest mined batch; each timed beside the 64-bit instance on
+# the same keys, zero-extended
+KEYS32_UPSERT = ((1 << 20, 16_384, 0.0, 32), (1 << 20, 16_384, 0.7, 64), (1 << 20, 512, 0.0, 32))
+KEYS32_MINE_LANES = (512, 8_192)
+KEYS32_MINE_TIMED = "patterned"
+KEYS32_QS = dict(depth=4, width=512)
+
+
+def _keys32_loop(device, decisions=None):
+    """The ingest CLI's deployment (configs/paper_ingest.py: 2^20 nodes,
+    2^21 edges, 60 records/s, 5x bursts, seed 0), controlled, at 32-bit
+    keys, with the query sink (D=4, W=512) and GraphZip compression on,
+    for MAIN_TICKS ticks on `device`.  With `decisions`, its controller
+    replays them.  Returns (pipe, report, dictionary stage, decisions,
+    the largest edge table the miner saw, K3's calls by key dtype)."""
+    import torch
+
+    from repro_torch.api import PipelineBuilder
+    from repro_torch.configs.paper_ingest import IngestConfig
+    from repro_torch.ingest.sources import BurstyTweetSource
+    from repro_torch.kernels import ops
+
+    cfg = IngestConfig()
+    b = (PipelineBuilder(cfg, device=device, key_dtype=torch.int32)
+         .with_source(BurstyTweetSource(seed=0)).with_query_sink(**KEYS32_QS)
+         .with_compression(capacity=4096))
+    if decisions is not None:
+        b = b.with_controller(_replaying(cfg, decisions, device))
+    pipe = b.build()
+    seen = []
+    pipe.controller.on_decision = lambda d: seen.append((d.action, d.beta))
+    dstage, rewrite, kept = b.dictionary_stage, b.dictionary_stage.rewrite, {"et": None}
+
+    def keep_largest(et):
+        if kept["et"] is None or et.src.shape[0] > kept["et"].src.shape[0]:
+            kept["et"] = et
+        return rewrite(et)
+
+    dstage.rewrite = keep_largest
+    absorb, k3_keys = ops.sketch_absorb, collections.Counter()
+
+    def counted(*args):
+        k3_keys[str(args[3].dtype)] += 1
+        return absorb(*args)
+
+    ops.sketch_absorb = counted
+    try:
+        rep = pipe.run(max_ticks=MAIN_TICKS)
+    finally:
+        ops.sketch_absorb = absorb
+    return pipe, rep, dstage, seen, kept["et"], k3_keys
+
+
+def keys32_upsert(torch, dev):
+    """K1's 32-bit instance against its plain version, bit for bit under
+    every cluster width, at KEYS32_UPSERT; each shape also through the
+    64-bit instance on the same keys zero-extended, both timed."""
+    from repro_torch.kernels import upsert
+
+    rows = []
+    for cap, lanes, load, probes in KEYS32_UPSERT:
+        seed = int(load * 10) + lanes
+        pool = torch.from_numpy(_random_keys(np.random.default_rng(seed), int(load * cap) + lanes,
+                                             bits=32)).to(dev)
+        m = int(load * cap)
+        for bits in (32, 64):
+            keys_pool = pool if bits == 32 else pool.long() & 0xFFFFFFFF
+            table = torch.zeros(cap, dtype=keys_pool.dtype, device=dev)
+            if m:
+                _, fslot, _ = upsert.fused_upsert_ref(
+                    table, keys_pool[:m], torch.ones(m, dtype=torch.bool, device=dev),
+                    FILL_PROBES)
+                if bool((fslot < 0).any()):
+                    raise AssertionError(f"fill of a {cap}-slot table to load {load} dropped")
+            keys, valid = upsert_batch(torch, dev, np.random.default_rng(seed + 1), keys_pool,
+                                       m, lanes)
+            row = upsert_row(torch, f"node{bits}", cap, table, m, keys, valid, probes)
+            rows.append({"key_bits": bits, "load": load, **row})
+            print("keys32 upsert", json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def keys32_mine(torch, dev, path_batch):
+    """K5's 32-bit instance against its plain version, bit for bit, at
+    KEYS32_MINE_LANES on every kind of `_mine_batch` (its ids cut to
+    their low 32 bits) and on the path's largest mined batch; the
+    KEYS32_MINE_TIMED kind and the path batch timed beside the 64-bit
+    instance on the same keys zero-extended."""
+    from repro_torch.kernels.pattern_mine import cluster_plan, pattern_mine, pattern_mine_ref
+
+    rng = np.random.default_rng(28)
+    cases = []
+    for n in KEYS32_MINE_LANES:
+        for kind in MINE_KINDS:
+            src, dst, et, count, valid = _mine_batch(torch, rng, n, kind)
+            cases.append((kind, tuple(t.to(dev) for t in (src.to(torch.int32),
+                                                         dst.to(torch.int32), et, count,
+                                                         valid)) + (4, 2)))
+    cases.append(("path", path_batch))
+    rows = []
+    for kind, args in cases:
+        if args[0].dtype != torch.int32:
+            raise AssertionError(f"keys32 mine: a {args[0].dtype} batch")
+        got, want = pattern_mine(*args), pattern_mine_ref(*args)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got[:3], want[:3]))
+        err = max(err, int((got[3] != want[3]).sum()))
+        if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"pattern_mine 32-bit kernel != plain: {kind} "
+                                 f"n={args[0].shape[0]} max_abs_err={err}")
+        n = args[0].shape[0]
+        row = {"batch": kind, "lanes": n, "valid": int(args[4].sum()),
+               "flagged": int((want[2] != 0).sum()), "max_abs_err": err}
+        if kind in (KEYS32_MINE_TIMED, "path"):
+            wide = (args[0].long() & 0xFFFFFFFF, args[1].long() & 0xFFFFFFFF) + args[2:]
+            # src, dst, etype, count, valid read (key, key, 4, 4, 1 B); fans, flags
+            # (3 x 4 B) and psig (a key) written
+            row.update(ms=_time_ms(torch, pattern_mine, (), args, KERNEL_REPS),
+                       plain_ms=_time_ms(torch, pattern_mine_ref, (), args, PLAIN_REPS),
+                       bound_ms=33 * n / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                       ms_64=_time_ms(torch, pattern_mine, (), wide, KERNEL_REPS),
+                       bound_ms_64=45 * n / H100_BYTES_PER_S * 1e3,
+                       ctas_a_vector=cluster_plan(n))
+        rows.append(row)
+        print("keys32 mine", json.dumps(row), flush=True)
+    return rows
+
+
+def keys32_path(torch):
+    """Phase 28: the 32-bit key path.  (a) `_keys32_loop` on the card,
+    counters set to 0 just before and read just after, then on the host
+    replaying the card's decisions: equal records, commits, drops, store,
+    sketch and dictionary; (b) K1's and (c) K5's 32-bit instances against
+    their plain versions, bit for bit, timed beside the 64-bit ones."""
+    from repro_torch import convert
+    from repro_torch.kernels import build
+
+    build.launches.clear()
+    t0 = time.perf_counter()
+    pipe, rep, dstage, decisions, mined, k3_keys = _keys32_loop("cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    commits = [c for c in pipe.sink.ingestor.commits if c.ok]
+    by_width = {k: launches.get(k, 0) for k in ("fused_upsert", "fused_upsert32",
+                                                 "pattern_mine", "pattern_mine32",
+                                                 "sketch_scatter")}
+    if (pipe.store.node_keys.dtype != torch.int32 or not commits
+            or by_width["fused_upsert"] or by_width["pattern_mine"]
+            or by_width["fused_upsert32"] < 2 * len(commits)
+            or by_width["pattern_mine32"] != dstage.rewrites
+            or by_width["sketch_scatter"] != pipe.sink.commits
+            or set(k3_keys) != {"torch.int32"}):
+        raise AssertionError(f"keys32 path: launches {by_width} for {len(commits)} commits, "
+                             f"{dstage.rewrites} rewrites, {pipe.sink.commits} sketch "
+                             f"updates; K3 calls by key dtype {dict(k3_keys)}")
+    mu = rep.samples["mu"]
+    if not (np.isfinite(mu).all() and rep.total_records > 0 and int(pipe.store.n_edges) > 0
+            and sum(c.refs for c in commits) > 0):
+        raise AssertionError("keys32 path produced no finite, non-empty, compressed result")
+
+    def digest(pipe, rep, dstage):
+        ing = pipe.sink.ingestor
+        return (
+            {**{f"store.{k}": v for k, v in convert.store_to_numpy(pipe.store).items()},
+             **{f"sketch.{k}": v for k, v in convert.sketch_to_numpy(pipe.sink.sketch).items()},
+             **{f"dictionary.{k}": v
+                for k, v in convert.dictionary_to_numpy(dstage.dct).items()}},
+            {"records": rep.total_records, "instructions": rep.total_instructions,
+             "raw": rep.raw_instructions, "dropped_total": sum(c.dropped for c in ing.commits),
+             "refs": sum(c.refs for c in ing.commits), "dict": dstage.stats(),
+             "commits": [(c.ok, c.instructions, c.new_nodes, c.batch_nodes, c.probe_rounds,
+                          c.dropped, c.refs) for c in ing.commits]})
+
+    card = digest(pipe, rep, dstage)
+    hpipe, hrep, hdstage, hdecisions, _, _ = _keys32_loop("cpu", decisions)
+    host = digest(hpipe, hrep, hdstage)
+    for name, a in card[0].items():
+        if a.dtype != host[0][name].dtype or not np.array_equal(a, host[0][name]):
+            raise AssertionError(f"keys32 path: card and host differ in {name}")
+    if card[1] != host[1] or hdecisions != decisions:
+        raise AssertionError(f"keys32 path: card and host reports differ")
+    summary = {k: v for k, v in card[1].items() if k != "commits"}
+    print("keys32 path: " + json.dumps({
+        "ticks": MAIN_TICKS, "commits": len(commits), "wall_s": wall_s,
+        "wall_ms_per_tick": wall_s * 1e3 / MAIN_TICKS, "store_nodes": int(pipe.store.n_nodes),
+        "store_edges": int(pipe.store.n_edges), "launches_by_width": by_width,
+        "k3_calls_by_key_dtype": dict(k3_keys), "largest_mined_batch": mined.src.shape[0],
+        **summary}), flush=True)
+    print(f"keys32 path: card == host (the card's {len(decisions)} decisions replayed): "
+          "store, sketch and dictionary arrays, records, commits and drops", flush=True)
+    upsert_rows = keys32_upsert(torch, torch.device("cuda"))
+    mine_rows = keys32_mine(torch, torch.device("cuda"),
+                            (mined.src, mined.dst, mined.etype, mined.count, mined.edge_valid,
+                             dstage.star_min, dstage.hot_min))
+    return by_width, upsert_rows, mine_rows
 
 
 def _flash_tol(dtype, S, torch):
@@ -2566,6 +2789,7 @@ def main():
     phase(25, serve_cuda_vs_cpu, torch)
     phase(26, sharded_workload_breakdown, torch)
     phase(27, monitored_workload, torch, smi)
+    k32_by_width, k32_upsert, k32_mine = phase(28, keys32_path, torch)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["lanes"] == NODE_SWEEP[2]
@@ -2711,6 +2935,38 @@ def main():
         "prefill_device_ms": k8_prefill_ms, "tflops": sref8["tflops"],
         "bound_share": sref8["bound_share"],
         "shape": {k: sref8[k] for k in ("B", "S", "heads", "p", "N", "Q")},
+    }]
+    # the 32-bit instances at phase 1's node sweep and the path's largest
+    # mined batch, each beside the 64-bit instance on the same keys
+    uref = next(r for r in k32_upsert if r["key_bits"] == 32 and r["lanes"] == NODE_SWEEP[2]
+                and r["load"] == 0.0)
+    u64 = next(r for r in k32_upsert if r["key_bits"] == 64 and r["lanes"] == NODE_SWEEP[2]
+               and r["load"] == 0.0)
+    m32 = next(r for r in k32_mine if r["batch"] == "path")
+    k32_path = ("PipelineBuilder(key_dtype=torch.int32): the ingest deployment with the "
+                "query sink and GraphZip (phase 28)")
+    kernels += [{
+        "name": "fused_upsert32", "route": "cuda", "entry": "fused_upsert32_launch",
+        "source": "src/repro_torch/kernels/csrc/fused_upsert.cu",
+        "replaces": "src/repro/kernels/upsert.py:104", "path": k32_path,
+        "launches": k32_by_width["fused_upsert32"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in k32_upsert),
+        "ms": uref["ms"], "plain_ms": uref["plain_ms"], "bound_ms": uref["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "ms_64": u64["ms"],
+        "bound_ms_64": u64["bound_ms"], "max_rounds": uref["max_rounds"], "ctas": uref["ctas"],
+        "shape": {"cap": uref["cap"], "lanes": uref["lanes"], "load": uref["load"],
+                  "probes": uref["probes"], "key_bits": 32},
+    }, {
+        "name": "pattern_mine32", "route": "cuda", "entry": "pattern_mine32_launch",
+        "source": "src/repro_torch/kernels/csrc/pattern_mine.cu",
+        "replaces": "src/repro/kernels/pattern_mine.py:174", "path": k32_path,
+        "launches": k32_by_width["pattern_mine32"], "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in k32_mine),
+        "ms": m32["ms"], "plain_ms": m32["plain_ms"], "bound_ms": m32["bound_ms"],
+        "bound_by": m32["bound_by"], "library_ms": None, "ms_64": m32["ms_64"],
+        "bound_ms_64": m32["bound_ms_64"],
+        "shape": {"batch": "path", "lanes": m32["lanes"], "valid": m32["valid"],
+                  "key_bits": 32},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,9 @@ port imports `torch` and numpy only, never `jax` and nothing of
 
 Conventions:
   * node and edge keys are `torch.int64` tensors holding the uint64 bit
-    pattern of the reference's x64 keys (0 = empty slot, all-ones =
+    pattern of the reference's x64 keys, or `torch.int32` tensors holding
+    the uint32 bits of its default keys, chosen by `key_dtype=` where a
+    store, sketch or edge table is made (0 = empty slot, all-ones =
     sentinel); unsigned order is taken on sign-flipped values
     (`core.compression.flip_sign`);
   * entry points take a `device` argument that defaults to "cuda" and

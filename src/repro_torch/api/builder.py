@@ -14,7 +14,9 @@ telemetry with the controller audit trail, and the health monitor).
 
 `sharded(n)` switches `build()` to a `ShardedPipeline`.  Every part not
 set explicitly gets the paper default, made on the builder's `device`
-(default the card).
+(default the card) with the builder's `key_dtype`: torch.int64 (the
+default) keeps uint64 keys, as the reference under x64; torch.int32 keeps
+uint32 keys (the low 32 bits of each id), as the reference without it.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.api.stages import BufferControlStage, FilterStage, TransformSta
 from repro_torch.compress import CompressingTransform, DictionaryStage
 from repro_torch.configs.paper_ingest import IngestConfig
 from repro_torch.core.buffer import BufferController
+from repro_torch.core.compression import check_key_dtype
 from repro_torch.core.transform import MappingSpec
 from repro_torch.device import resolve
 from repro_torch.monitor import HealthMonitor
@@ -44,9 +47,11 @@ _DICT_SLOT = object()
 
 class PipelineBuilder:
     def __init__(self, cfg: Optional[IngestConfig] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 key_dtype: torch.dtype = torch.int64):
         self.cfg = cfg or IngestConfig()
         self.device = resolve(device)
+        self.key_dtype = check_key_dtype(key_dtype)
         self._source = None
         self._filter: Optional[FilterStage] = None
         self._keywords: Sequence[str] = ()
@@ -253,6 +258,7 @@ class PipelineBuilder:
                     kw.setdefault("mapping", self._mapping)
                     kw.setdefault("max_edges_per_batch", self.cfg.max_edges_per_batch)
                     kw.setdefault("device", self.device)
+                    kw.setdefault("key_dtype", self.key_dtype)
                     self._sketch_stage = SketchStage(**kw)
                 stages.append(self._sketch_stage)
             elif st is _DICT_SLOT:
@@ -267,9 +273,10 @@ class PipelineBuilder:
         transform = self._transform or TransformStage(
             mapping=self._mapping,
             max_edges_per_batch=self.cfg.max_edges_per_batch,
-            compress=self._compress, device=dev)
+            compress=self._compress, device=dev, key_dtype=self.key_dtype)
         sink = self._sink or GraphStoreSink(
-            node_cap=self.cfg.store_nodes, edge_cap=self.cfg.store_edges, device=dev)
+            node_cap=self.cfg.store_nodes, edge_cap=self.cfg.store_edges, device=dev,
+            key_dtype=self.key_dtype)
         consumer = self._consumer
         if consumer == "measured":
             if not isinstance(sink, GraphStoreSink):

@@ -18,6 +18,7 @@ import torch
 from repro_torch.api.protocols import TickContext
 from repro_torch.configs.paper_ingest import IngestConfig
 from repro_torch.core.buffer import BufferController, ControllerDecision
+from repro_torch.core.compression import check_key_dtype
 from repro_torch.core.edge_table import EdgeTable, from_raw_batch
 from repro_torch.core.transform import MappingSpec, create_edges, tweet_mapping
 from repro_torch.device import resolve
@@ -40,8 +41,9 @@ class FilterStage:
 
 
 class TransformStage:
-    """Records -> compressed edge table on `device` (default the card)
-    + instruction counts.
+    """Records -> compressed edge table on `device` (default the card),
+    with `key_dtype` keys (torch.int64: uint64 bits, torch.int32: the low
+    32 bits of each id), + instruction counts.
 
     `compress=False` keeps the compressed table for the store but
     accounts the ingestion load at the raw instruction stream, the
@@ -51,12 +53,14 @@ class TransformStage:
 
     def __init__(self, mapping: Optional[MappingSpec] = None,
                  max_edges_per_batch: int = 8_192, compress: bool = True,
-                 telemetry=None, device: Union[str, torch.device, None] = None):
+                 telemetry=None, device: Union[str, torch.device, None] = None,
+                 key_dtype: torch.dtype = torch.int64):
         self.mapping = mapping or tweet_mapping()
         self.max_edges_per_batch = max_edges_per_batch
         self.compress = compress
         self.telemetry = telemetry or NULL_REGISTRY
         self.device = resolve(device)
+        self.key_dtype = check_key_dtype(key_dtype)
 
     def encode(self, records: List[dict]) -> Tuple[EdgeTable, int, int]:
         tel = self.telemetry
@@ -65,7 +69,7 @@ class TransformStage:
         cap = max(64, 1 << int(np.ceil(np.log2(max(raw.n_edges, 1)))))
         cap = min(cap, self.max_edges_per_batch)
         with tel.span("transform.dedup"):
-            et = from_raw_batch(raw, cap, device=self.device)
+            et = from_raw_batch(raw, cap, device=self.device, key_dtype=self.key_dtype)
         raw_instr = 3 * raw.n_edges
         if not self.compress:
             n_instr = raw_instr

@@ -23,6 +23,10 @@ Lifecycle (counter-deterministic: no wall clock, no RNG):
 Both functions return a new `PatternDictionary` and leave the one they
 were given as it was; `dict_admit` sweeps its own copy of the
 signature table in place.
+
+Signatures are int64 (uint64 bits) or int32 (uint32 bits), by
+`init_dictionary(..., key_dtype=)`; keys looked up or admitted must be
+of that width.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Tuple, Union
 
 import torch
 
+from repro_torch.core.compression import check_key_dtype
 from repro_torch.device import resolve
 from repro_torch.kernels.upsert import fused_upsert, probe_hash
 
@@ -41,8 +46,8 @@ DICT_PROBES = 16  # fixed probe budget (table never exceeds high water)
 class PatternDictionary:
     """Fixed-capacity signature table + payload + LRU bookkeeping."""
 
-    sig: torch.Tensor        # (C,) int64 key bits; 0 = empty slot
-    psig: torch.Tensor       # (C,) int64 mined pattern signature (lineage)
+    sig: torch.Tensor        # (C,) key bits (int64 or int32); 0 = empty slot
+    psig: torch.Tensor       # (C,) mined pattern signature (lineage), sig's width
     eslot: torch.Tensor      # (C,) int32 cached store edge slot
     sslot: torch.Tensor      # (C,) int32 cached store slot of src node
     dslot: torch.Tensor      # (C,) int32 cached store slot of dst node
@@ -67,14 +72,18 @@ class PatternDictionary:
 
 
 def init_dictionary(capacity: int,
-                    device: Union[str, torch.device] = "cuda") -> PatternDictionary:
+                    device: Union[str, torch.device] = "cuda",
+                    key_dtype: torch.dtype = torch.int64) -> PatternDictionary:
+    """An empty dictionary of `capacity` slots on `device` for
+    `key_dtype` signatures."""
     dev = resolve(device)
+    kd = check_key_dtype(key_dtype)
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     return PatternDictionary(
-        sig=z(capacity, torch.int64), psig=z(capacity, torch.int64),
+        sig=z(capacity, kd), psig=z(capacity, kd),
         eslot=z(capacity, torch.int32), sslot=z(capacity, torch.int32),
         dslot=z(capacity, torch.int32), refcount=z(capacity, torch.int32),
         clock=z(capacity, torch.int32), tick=z((), torch.int32),

@@ -16,6 +16,10 @@ raw path would, and present keys never claim empty slots.
 
 `CompressedCommit` duck-types the `EdgeTable` surface the rest of the
 system reads (the controller's table metadata, the sketch's fields).
+
+Keys follow the edge table's width (int64: uint64 bits, int32: uint32);
+the stage makes its dictionary at that width, and makes it anew when an
+edge table of the other width arrives, as the reference does.
 """
 from __future__ import annotations
 
@@ -52,9 +56,9 @@ class CompressedCommit:
 
     residual: EdgeTable
     res_admit: torch.Tensor    # (rcap,) bool: mined pattern members to admit
-    res_psig: torch.Tensor     # (rcap,) int64: their pattern signatures
-    ref_src: torch.Tensor      # (R,) int64
-    ref_dst: torch.Tensor      # (R,) int64
+    res_psig: torch.Tensor     # (rcap,) their pattern signatures (key width)
+    ref_src: torch.Tensor      # (R,) key bits
+    ref_dst: torch.Tensor      # (R,) key bits
     ref_etype: torch.Tensor    # (R,) int32
     ref_count: torch.Tensor    # (R,) int32 batch multiplicity
     ref_eslot: torch.Tensor    # (R,) int32 store edge slot (binding)
@@ -115,12 +119,12 @@ class CompressedCommit:
         return eff / raw
 
 
-def _empty_refs(device, cap: int = REF_MIN_CAP) -> dict:
+def _empty_refs(device, key_dtype: torch.dtype, cap: int = REF_MIN_CAP) -> dict:
     def full(v, dtype):
         return torch.full((cap,), v, dtype=dtype, device=device)
 
     return dict(
-        ref_src=full(0, torch.int64), ref_dst=full(0, torch.int64),
+        ref_src=full(0, key_dtype), ref_dst=full(0, key_dtype),
         ref_etype=full(0, torch.int32), ref_count=full(0, torch.int32),
         ref_eslot=full(-1, torch.int32), ref_sslot=full(-1, torch.int32),
         ref_dslot=full(-1, torch.int32), ref_pattern=full(-1, torch.int32),
@@ -235,8 +239,9 @@ class DictionaryStage:
     def rewrite(self, et: EdgeTable) -> CompressedCommit:
         """Mine + dictionary lookup + split one dedup'd batch."""
         tel = self.telemetry
-        if self.dct is None:
-            self.dct = init_dictionary(self.capacity, self.device)
+        kd = et.src.dtype
+        if self.dct is None or self.dct.sig.dtype != kd:
+            self.dct = init_dictionary(self.capacity, self.device, key_dtype=kd)
         with tel.span("rewrite.mine"):
             _, _, flags, psig = pattern_mine(
                 et.src, et.dst, et.etype, et.count, et.edge_valid,
@@ -255,7 +260,7 @@ class DictionaryStage:
                 residual=et, res_admit=admit,
                 res_psig=torch.where(et.edge_valid, psig, torch.zeros_like(psig)),
                 n_raw=et.n_raw, n_nodes_full=et.n_nodes,
-                n_edges_full=et.n_edges, **_empty_refs(et.src.device))
+                n_edges_full=et.n_edges, **_empty_refs(et.src.device, kd))
         cap = et.src.shape[0]
         rcap = min(_pow2(max(n_valid - n_ref, 1), 64), cap)
         refcap = min(_pow2(n_ref, REF_MIN_CAP), cap)

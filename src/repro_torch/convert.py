@@ -1,17 +1,20 @@
 """State carried between the reference (JAX) package and the port.
 
-The reference holds uint64 keys; the port holds the same bits as int64.
-These functions take and give plain numpy arrays (`np.asarray` of the
-reference's arrays), so the port never imports the reference:
+The reference holds uint64 keys under x64 and uint32 keys without it;
+the port holds the same bits as int64 or int32.  These functions take and
+give plain numpy arrays (`np.asarray` of the reference's arrays), so the
+port never imports the reference.  The numpy dtype of a key field selects
+the width: a 4-byte array loads as int32 bits, any other as int64 bits,
+and each comes back as uint32 or uint64.
 
   * `store_from_numpy` / `store_to_numpy`: a store's arrays, by field
-    name, in both directions (key fields as uint64 on the numpy side);
+    name, in both directions (key fields unsigned on the numpy side);
   * `sketch_from_numpy` / `sketch_to_numpy`: the same for a
-    `GraphSketch` (`hh_keys` as uint64);
-  * `snapshot_to_numpy`: a `GraphSnapshot`'s arrays (`node_key` as
-    uint64), to compare with the reference's;
+    `GraphSketch` (`hh_keys` unsigned);
+  * `snapshot_to_numpy`: a `GraphSnapshot`'s arrays (`node_key`
+    unsigned), to compare with the reference's;
   * `dictionary_from_numpy` / `dictionary_to_numpy`: the same for a
-    GraphZip `PatternDictionary` (`sig` and `psig` as uint64);
+    GraphZip `PatternDictionary` (`sig` and `psig` unsigned);
   * `controller_from_numpy`: the two RLS states (theta, P, n) of a
     `PerfMon.state()` dict, into a port `BufferController`;
   * `bloom_bitmap_from_numpy` / `bloom_bitmap_to_numpy`: a Bloom filter,
@@ -36,6 +39,7 @@ import torch
 from repro_torch.compress.dictionary import PatternDictionary
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.buffer import rls_from_numpy
+from repro_torch.core.compression import signed_view, unsigned_view
 from repro_torch.graphstore.store import GraphStore
 from repro_torch.models import model as lm
 from repro_torch.models.params import torch_dtype
@@ -48,11 +52,13 @@ KEY_FIELDS = ("node_keys", "edge_keys", "edge_src", "edge_dst", "hh_keys", "node
 
 def _from_numpy(cls, arrays: Mapping[str, np.ndarray], device):
     """A `cls` on `device` from numpy arrays keyed by field name: key
-    fields as int64 bits, every other field as int32."""
+    fields as int32 bits where they are 4-byte (uint32), else as int64
+    bits; every other field as int32."""
     def tensor(name):
         a = np.array(arrays[name])  # a contiguous copy; 0-d stays 0-d
         if name in KEY_FIELDS:
-            a = a.astype(np.uint64, copy=False).view(np.int64)
+            a = signed_view(a.astype(np.uint32 if a.dtype.itemsize == 4 else np.uint64,
+                                     copy=False))
         elif a.dtype != np.int32:
             a = a.astype(np.int32)
         return torch.from_numpy(a).to(device)
@@ -64,7 +70,7 @@ def _to_numpy(obj) -> Dict[str, np.ndarray]:
     out = {}
     for f in dataclasses.fields(obj):
         a = getattr(obj, f.name).cpu().numpy()
-        out[f.name] = a.view(np.uint64) if f.name in KEY_FIELDS else a
+        out[f.name] = unsigned_view(a) if f.name in KEY_FIELDS else a
     return out
 
 
@@ -75,7 +81,7 @@ def store_from_numpy(arrays: Mapping[str, np.ndarray],
 
 
 def store_to_numpy(store: GraphStore) -> Dict[str, np.ndarray]:
-    """The port store's arrays as numpy, key fields as uint64."""
+    """The port store's arrays as numpy, key fields unsigned."""
     return _to_numpy(store)
 
 
@@ -86,12 +92,12 @@ def sketch_from_numpy(arrays: Mapping[str, np.ndarray],
 
 
 def sketch_to_numpy(sketch: GraphSketch) -> Dict[str, np.ndarray]:
-    """The port sketch's arrays as numpy, `hh_keys` as uint64."""
+    """The port sketch's arrays as numpy, `hh_keys` unsigned."""
     return _to_numpy(sketch)
 
 
 def snapshot_to_numpy(snap: GraphSnapshot) -> Dict[str, np.ndarray]:
-    """The port snapshot's arrays as numpy, `node_key` as uint64."""
+    """The port snapshot's arrays as numpy, `node_key` unsigned."""
     return _to_numpy(snap)
 
 
@@ -103,7 +109,7 @@ def dictionary_from_numpy(arrays: Mapping[str, np.ndarray],
 
 
 def dictionary_to_numpy(d: PatternDictionary) -> Dict[str, np.ndarray]:
-    """The port dictionary's arrays as numpy, `sig` and `psig` as uint64."""
+    """The port dictionary's arrays as numpy, `sig` and `psig` unsigned."""
     return _to_numpy(d)
 
 

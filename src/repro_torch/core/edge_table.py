@@ -4,6 +4,10 @@
 list with a `count` property per edge, the indexed node list, and the
 table-level metadata the controller reads (§III-A).  Counterpart of
 `repro.core.edge_table`.
+
+Keys are int64 (uint64 bits) or int32 (uint32 bits): `from_raw_batch`
+takes the width as `key_dtype=`, and `build_edge_table` follows the
+dtype of the ids it is given.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ class EdgeTable:
     """Fixed-capacity deduplicated edge table + node index."""
 
     # edges
-    src: torch.Tensor  # (cap,) int64 key bits
+    src: torch.Tensor  # (cap,) key bits (int64 or int32)
     dst: torch.Tensor
     etype: torch.Tensor  # (cap,) int32
     count: torch.Tensor  # (cap,) int32   duplicate-edge multiplicity
@@ -87,18 +91,23 @@ def build_edge_table(src, dst, etype, valid) -> EdgeTable:
 
 
 def from_raw_batch(raw: RawEdgeBatch, capacity: int,
-                   device: Union[str, torch.device] = "cuda") -> EdgeTable:
-    """Host RawEdgeBatch -> padded device tensors -> EdgeTable."""
+                   device: Union[str, torch.device] = "cuda",
+                   key_dtype: torch.dtype = torch.int64) -> EdgeTable:
+    """Host RawEdgeBatch -> padded device tensors -> EdgeTable with
+    `key_dtype` keys.  At 32 bits an id keeps its low 32 bits, as the
+    reference's uint32 conversion does (0x1234567890ABCDEF becomes
+    0x90ABCDEF)."""
     n = min(raw.n_edges, capacity)
+    unsigned = C.numpy_unsigned(key_dtype)
 
     def prep(a, dtype):
         out = np.zeros(capacity, dtype)
-        out[:n] = a[:n]
+        out[:n] = a[:n]  # a uint64 id into uint32 keeps its low 32 bits
         return out
 
-    # one host->device copy per array; uint64 ids travel as int64 bits
-    src = torch.from_numpy(prep(raw.src, np.uint64).view(np.int64)).to(device)
-    dst = torch.from_numpy(prep(raw.dst, np.uint64).view(np.int64)).to(device)
+    # one host->device copy per array; unsigned ids travel as signed bits
+    src = torch.from_numpy(C.signed_view(prep(raw.src, unsigned))).to(device)
+    dst = torch.from_numpy(C.signed_view(prep(raw.dst, unsigned))).to(device)
     et = torch.from_numpy(prep(raw.etype, np.int32)).to(device)
     valid = torch.arange(capacity, device=device) < n
     return build_edge_table(src, dst, et, valid)

@@ -33,11 +33,12 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.compression import signed_view, unsigned_view
 from repro_torch.core.edge_table import EdgeTable
 from repro_torch.graphstore.store import GraphStore, commit_compressed, ingest_step
 from repro_torch.telemetry.spans import NULL_REGISTRY
 
-# uint64 key fields of an EdgeTable and of a compress.CompressedCommit
+# key fields of an EdgeTable and of a compress.CompressedCommit
 _KEY_FIELDS = ("src", "dst", "node_ids", "res_psig", "ref_src", "ref_dst")
 # commit stats the host reads after every commit, fetched in one copy
 _HOST_STATS = ("instructions", "new_nodes", "batch_nodes", "probe_rounds",
@@ -69,11 +70,11 @@ def _map_fields(batch, fn):
 
 
 def _to_host(et):
-    """Batch -> numpy leaves (pickle/spill-safe), keys as uint64: the
-    layout of the reference's archive files."""
+    """Batch -> numpy leaves (pickle/spill-safe), keys as uint64 or
+    uint32 by their width: the layout of the reference's archive files."""
     def host(name, x):
         a = x.detach().cpu().numpy()
-        return a.view(np.uint64) if name in _KEY_FIELDS else a
+        return unsigned_view(a) if name in _KEY_FIELDS else a
 
     return _map_fields(et, host)
 
@@ -81,9 +82,7 @@ def _to_host(et):
 def _to_device(et, device: torch.device):
     """Inverse of `_to_host`: numpy leaves back to tensors on `device`."""
     def dev(_, a):
-        a = np.asarray(a)
-        if a.dtype == np.uint64:
-            a = a.view(np.int64)
+        a = signed_view(np.asarray(a))
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return _map_fields(et, dev)

@@ -18,6 +18,10 @@ Unlike the reference, `ingest_step` and `commit_compressed` update the
 store's tensors IN PLACE and return the same `GraphStore`: the tables
 are the largest state on the device, and a functional copy would move
 them on every commit.
+
+Keys are 64-bit (int64 holding uint64 bits) or 32-bit (int32 holding
+uint32 bits), chosen by `init_store(..., key_dtype=)`; the commit path
+follows the dtype of the tables and of the edge tables it is given.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from typing import Tuple, Union
 
 import torch
 
-from repro_torch.core.compression import flip_sign, mix_keys
+from repro_torch.core.compression import check_key_dtype, flip_sign, mix_keys
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
@@ -35,12 +39,12 @@ MAX_PROBES = 32
 
 @dataclasses.dataclass
 class GraphStore:
-    node_keys: torch.Tensor  # (Ncap,) int64 key bits; 0 = empty
+    node_keys: torch.Tensor  # (Ncap,) key bits (int64 or int32); 0 = empty
     node_count: torch.Tensor  # (Ncap,) int32  (times seen, a node property)
     node_degree: torch.Tensor  # (Ncap,) int32
-    edge_keys: torch.Tensor  # (Ecap,) int64
-    edge_src: torch.Tensor  # (Ecap,) int64
-    edge_dst: torch.Tensor  # (Ecap,) int64
+    edge_keys: torch.Tensor  # (Ecap,) key bits
+    edge_src: torch.Tensor  # (Ecap,) key bits
+    edge_dst: torch.Tensor  # (Ecap,) key bits
     edge_type: torch.Tensor  # (Ecap,) int32
     edge_count: torch.Tensor  # (Ecap,) int32
     n_nodes: torch.Tensor  # scalar int32
@@ -74,19 +78,23 @@ class CommitDelta:
 
 
 def init_store(node_cap: int, edge_cap: int,
-               device: Union[str, torch.device] = "cuda") -> GraphStore:
+               device: Union[str, torch.device] = "cuda",
+               key_dtype: torch.dtype = torch.int64) -> GraphStore:
+    """An empty store on `device` whose key tables hold `key_dtype` keys
+    (torch.int64: uint64 bits, torch.int32: uint32 bits)."""
     dev = resolve(device)
+    kd = check_key_dtype(key_dtype)
 
     def z(c, dtype):
         return torch.zeros(c, dtype=dtype, device=dev)
 
     return GraphStore(
-        node_keys=z(node_cap, torch.int64),
+        node_keys=z(node_cap, kd),
         node_count=z(node_cap, torch.int32),
         node_degree=z(node_cap, torch.int32),
-        edge_keys=z(edge_cap, torch.int64),
-        edge_src=z(edge_cap, torch.int64),
-        edge_dst=z(edge_cap, torch.int64),
+        edge_keys=z(edge_cap, kd),
+        edge_src=z(edge_cap, kd),
+        edge_dst=z(edge_cap, kd),
         edge_type=z(edge_cap, torch.int32),
         edge_count=z(edge_cap, torch.int32),
         n_nodes=z((), torch.int32),

@@ -4,10 +4,17 @@
 // Replaces the TPU kernel repro/kernels/upsert.py::fused_upsert (the
 // pl.pallas_call at upsert.py:104, body upsert_sweep at :42).
 //
+// Two instances, one for each key width of the reference: 64-bit keys
+// (fused_upsert_launch) and 32-bit keys (fused_upsert32_launch).  The
+// width sets the table word, the key a CTA holds in shared memory (8 or
+// 4 bytes) and the probe's golden-ratio multiplier (0x9E3779B97F4A7C15
+// in uint64, 0x9E3779B9 in uint32, as the reference's probe_hash); the
+// schedule below is the same for both.
+//
 // Semantics are the reference's round-synchronous sweep, bit for bit.
 // In probe round i every live lane reads table[probe(key, i)] as it
 // stood BEFORE the round; a lane that finds its key is placed, a lane
-// that finds the slot empty (0) claims it with an unsigned 64-bit max
+// that finds the slot empty (0) claims it with an unsigned max
 // and checks back (the lane whose key is in the slot won it, new), and
 // every other lane probes on.  Key 0 reads an empty slot as its own
 // key: it is placed there even where a larger key won the claim (not
@@ -73,8 +80,12 @@
 // R rounds cannot take less than R of them; a tail round (budget 64 to
 // 128 at loads 0.7 and 0.85) costs 0.9 to 1.4 us, 5 to 8 of them, where
 // the first design paid 3.6 to 8.7.  Below 4,096 lanes one CTA beats
-// every cluster, whose launch costs 2 to 4 us more.  PERF.md (section 6)
-// has the rest.
+// every cluster, whose launch costs 2 to 4 us more.  The 32-bit instance
+// (chip_smoke.py phase 28, against the 64-bit one on the same keys
+// zero-extended) took 0.0169 ms at the node sweep (0.0161), 0.111 at
+// load 0.7 with budget 64 (0.117) and 0.0069 at 512 lanes (0.0078):
+// half the key bytes buy little where rounds' round trips bound the
+// sweep.  PERF.md (section 6) has the rest.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -95,20 +106,34 @@ constexpr int kHeader = 16;  // two int counts, padded for the keys
 constexpr unsigned short kClaim = 0x8000;  // a pending claim (keys held < 2^15)
 constexpr unsigned short kLane = 0x7FFF;
 constexpr unsigned short kNone = 0xFFFF;  // not on the worklist
-constexpr unsigned long long kProbeMul = 0x9E3779B97F4A7C15ull;
 constexpr int kMaxDevices = 64;  // devices whose attributes are tracked
 
+// The probe's golden-ratio multiplier at each key width.
+template <typename K>
+struct Golden;
+template <>
+struct Golden<unsigned long long> {
+  static constexpr unsigned long long kMul = 0x9E3779B97F4A7C15ull;
+};
+template <>
+struct Golden<unsigned> {
+  static constexpr unsigned kMul = 0x9E3779B9u;
+};
+
+template <typename K>
 constexpr size_t smem_bytes(int cta_lanes, int extra) {
-  // keys (8 B) and two worklists (2 B each) a lane held, and the global
-  // lane (4 B) of each lane taken over
-  return kHeader + static_cast<size_t>(cta_lanes + extra) * (sizeof(unsigned long long) + 4) +
+  // keys (8 or 4 B) and two worklists (2 B each) a lane held, and the
+  // global lane (4 B) of each lane taken over
+  return kHeader + static_cast<size_t>(cta_lanes + extra) * (sizeof(K) + 4) +
          static_cast<size_t>(extra) * sizeof(int);
 }
 
-// Low 32 bits of h ^ (h >> 16) with h = key * golden (logical shift):
-// the probe start, before the round number is added in uint32.
-__device__ __forceinline__ unsigned probe_base(unsigned long long key) {
-  const unsigned long long h = key * kProbeMul;
+// Low 32 bits of h ^ (h >> 16) with h = key * golden at the key's width
+// (logical shift): the probe start, before the round number is added in
+// uint32.
+template <typename K>
+__device__ __forceinline__ unsigned probe_base(K key) {
+  const K h = key * Golden<K>::kMul;
   return static_cast<unsigned>(h ^ (h >> 16));
 }
 
@@ -122,6 +147,12 @@ __device__ __forceinline__ unsigned probe_at(unsigned base, int i, unsigned cap,
 __device__ __forceinline__ unsigned long long load_l2(const unsigned long long* p) {
   unsigned long long v;
   asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ unsigned load_l2(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p));
   return v;
 }
 
@@ -152,13 +183,14 @@ __device__ __forceinline__ void enqueue(unsigned short* q, int* count,
 
 // What every phase of a CTA uses: the table, the outputs, and the keys
 // the CTA holds (its own lanes', then those taken over from the cluster).
+template <typename K>
 struct Sweep {
-  unsigned long long* table;
+  K* table;
   unsigned cap;
   bool pow2;
   int* slot;
   bool* is_new;
-  unsigned long long* key;
+  K* key;
   const int* taken;
   int cta_lanes, first;
 
@@ -178,8 +210,8 @@ struct Sweep {
 // A(i + 1) over worklist q of m entries: round i's claimants check back,
 // and losers and misses read round i+1's slot; the lanes still live go to
 // worklist nq.  A thread keeps kC entries in flight.
-template <int kC>
-__device__ __forceinline__ void check_back_and_read(const Sweep& s, const unsigned short* q,
+template <typename K, int kC>
+__device__ __forceinline__ void check_back_and_read(const Sweep<K>& s, const unsigned short* q,
                                                     int m, int i, bool last,
                                                     unsigned short* nq, int* ncount) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -187,7 +219,7 @@ __device__ __forceinline__ void check_back_and_read(const Sweep& s, const unsign
     // a warp whose first entry is past the worklist has none here or
     // later: in a tail round all but a few warps leave at once
     if (e0 + (tid & ~31) >= m) break;
-    unsigned long long key[kC], got[kC];
+    K key[kC], got[kC];
     unsigned short code[kC], next[kC];
     unsigned base[kC];
     bool reads[kC];
@@ -195,7 +227,7 @@ __device__ __forceinline__ void check_back_and_read(const Sweep& s, const unsign
     for (int j = 0; j < kC; ++j) {
       const int e = e0 + j * nt + tid;
       code[j] = e < m ? q[e] : kNone;
-      key[j] = code[j] != kNone ? s.key[code[j] & kLane] : 0ull;
+      key[j] = code[j] != kNone ? s.key[code[j] & kLane] : K(0);
       base[j] = code[j] != kNone ? probe_base(key[j]) : 0u;
     }
     // one read each: a claimant's check-back, or a miss's next slot
@@ -247,26 +279,25 @@ __device__ __forceinline__ void check_back_and_read(const Sweep& s, const unsign
 // A(0): round 0's read of the CTA's lanes, from registers: a thread owns
 // lanes tid, tid + T, ... and keeps kC of them in flight.  Placed and
 // invalid lanes are finished; the others go to worklist q with their keys.
-template <int kC>
-__device__ __forceinline__ void read_round0(const Sweep& s,
-                                            const unsigned long long* __restrict__ keys,
+template <typename K, int kC>
+__device__ __forceinline__ void read_round0(const Sweep<K>& s, const K* __restrict__ keys,
                                             const bool* __restrict__ valid, int lanes,
                                             unsigned short* q, int* count) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int l0 = 0; l0 < lanes; l0 += nt * kC) {
-    unsigned long long key[kC], cur[kC];
+    K key[kC], cur[kC];
     unsigned cand[kC];
     unsigned short code[kC];
     bool live[kC];
 #pragma unroll
     for (int j = 0; j < kC; ++j) {
       const int l = l0 + j * nt + tid;
-      key[j] = l < lanes ? keys[s.first + l] : 0ull;  // side by side with valid
+      key[j] = l < lanes ? keys[s.first + l] : K(0);  // side by side with valid
       live[j] = l < lanes && valid[s.first + l];
       cand[j] = s.at(probe_base(key[j]), 0);
     }
 #pragma unroll
-    for (int j = 0; j < kC; ++j) cur[j] = live[j] ? load_l2(s.table + cand[j]) : 0ull;
+    for (int j = 0; j < kC; ++j) cur[j] = live[j] ? load_l2(s.table + cand[j]) : K(0);
 #pragma unroll
     for (int j = 0; j < kC; ++j) {
       const int l = l0 + j * nt + tid;
@@ -288,10 +319,9 @@ __device__ __forceinline__ void read_round0(const Sweep& s,
   }
 }
 
-template <bool kCluster>
+template <typename K, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
-fused_upsert_kernel(unsigned long long* __restrict__ table, unsigned cap,
-                    const unsigned long long* __restrict__ keys,
+fused_upsert_kernel(K* __restrict__ table, unsigned cap, const K* __restrict__ keys,
                     const bool* __restrict__ valid, int n, int cta_lanes, int extra,
                     const int* __restrict__ n_probes, int* __restrict__ slot,
                     bool* __restrict__ is_new) {
@@ -301,7 +331,7 @@ fused_upsert_kernel(unsigned long long* __restrict__ table, unsigned cap,
   extern __shared__ __align__(16) unsigned char smem[];
   const int keys_held = cta_lanes + extra;
   int* count = reinterpret_cast<int*>(smem);
-  unsigned long long* skey = reinterpret_cast<unsigned long long*>(smem + kHeader);
+  K* skey = reinterpret_cast<K*>(smem + kHeader);
   unsigned short* q0 = reinterpret_cast<unsigned short*>(skey + keys_held);
   unsigned short* q1 = q0 + keys_held;
   int* taken = reinterpret_cast<int*>(q1 + keys_held);
@@ -309,7 +339,8 @@ fused_upsert_kernel(unsigned long long* __restrict__ table, unsigned cap,
   const int first = blockIdx.x * cta_lanes;  // a 1-D cluster's ranks are its blocks
   const int lanes = max(0, min(cta_lanes, n - first));
   const int budget = *n_probes;
-  const Sweep s{table, cap, (cap & (cap - 1)) == 0, slot, is_new, skey, taken, cta_lanes, first};
+  const Sweep<K> s{table, cap, (cap & (cap - 1)) == 0, slot, is_new, skey, taken, cta_lanes,
+                   first};
 
   if (tid == 0) count[0] = count[1] = 0;
   __syncthreads();
@@ -319,9 +350,9 @@ fused_upsert_kernel(unsigned long long* __restrict__ table, unsigned cap,
   }
   // A(0): a lane a thread where the CTA has no more lanes than threads
   if (lanes > nt) {
-    read_round0<kChunk>(s, keys, valid, lanes, q0, count);
+    read_round0<K, kChunk>(s, keys, valid, lanes, q0, count);
   } else {
-    read_round0<1>(s, keys, valid, lanes, q0, count);
+    read_round0<K, 1>(s, keys, valid, lanes, q0, count);
   }
 
   int p = 0;
@@ -351,7 +382,7 @@ fused_upsert_kernel(unsigned long long* __restrict__ table, unsigned cap,
         const int at = __reduce_add_sync(0xffffffffu, r < rank ? c : 0);
         const int own = __shfl_sync(0xffffffffu, c, 0);
         if (rank != 0) {
-          unsigned long long* key0 = cluster.map_shared_rank(skey, 0);
+          K* key0 = cluster.map_shared_rank(skey, 0);
           unsigned short* q_0 = cluster.map_shared_rank(q, 0);
           int* taken0 = cluster.map_shared_rank(taken, 0);
           for (int e = tid; e < m; e += nt) {
@@ -377,7 +408,7 @@ fused_upsert_kernel(unsigned long long* __restrict__ table, unsigned cap,
     for (int e = tid; e < m; e += nt) {
       const unsigned short code = q[e];
       if (code & kClaim) {
-        const unsigned long long key = skey[code & kLane];
+        const K key = skey[code & kLane];
         atomicMax(table + s.at(probe_base(key), i), key);
       }
     }
@@ -393,9 +424,9 @@ fused_upsert_kernel(unsigned long long* __restrict__ table, unsigned cap,
     // (an entry a thread at most) runs the one-entry body
     const bool last = i + 1 >= budget;
     if (m > nt) {
-      check_back_and_read<kChunk>(s, q, m, i, last, nq, count + (p ^ 1));
+      check_back_and_read<K, kChunk>(s, q, m, i, last, nq, count + (p ^ 1));
     } else {
-      check_back_and_read<1>(s, q, m, i, last, nq, count + (p ^ 1));
+      check_back_and_read<K, 1>(s, q, m, i, last, nq, count + (p ^ 1));
     }
     if (last) return;  // no CTA reads another's memory after barrier 2
     p ^= 1;
@@ -403,7 +434,8 @@ fused_upsert_kernel(unsigned long long* __restrict__ table, unsigned cap,
 }
 
 // The opt-ins are attributes of each kernel on each device: set them on
-// the first call there only.
+// the first call there only (each key width keeps its own record).
+template <typename K>
 cudaError_t opt_in() {
   static std::atomic<bool> opted_in[kMaxDevices];
   int device = 0;
@@ -411,14 +443,14 @@ cudaError_t opt_in() {
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!opted_in[device].load(std::memory_order_acquire)) {
-    const int bytes = static_cast<int>(smem_bytes(kMaxCtaLanes, kHandOver));
-    err = cudaFuncSetAttribute(fused_upsert_kernel<false>,
+    const int bytes = static_cast<int>(smem_bytes<K>(kMaxCtaLanes, kHandOver));
+    err = cudaFuncSetAttribute(fused_upsert_kernel<K, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(fused_upsert_kernel<true>,
+    err = cudaFuncSetAttribute(fused_upsert_kernel<K, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(fused_upsert_kernel<true>,
+    err = cudaFuncSetAttribute(fused_upsert_kernel<K, true>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     opted_in[device].store(true, std::memory_order_release);
@@ -426,37 +458,35 @@ cudaError_t opt_in() {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// Launches the sweep on `stream` as one cluster of `ctas` CTAs (1: a
-// lone CTA), each taking ceil(n / ctas) lanes, at most 16,384; allocates
-// nothing.  Returns the cudaError_t of the launch (0 = success), or
-// cudaErrorInvalidValue for a plan it does not run.
-extern "C" int fused_upsert_launch(void* table, int cap, const void* keys, const void* valid,
-                                   int n, const void* n_probes, int ctas, void* slot,
-                                   void* is_new, void* stream) {
+// Launches the sweep of K keys on `stream` as one cluster of `ctas` CTAs
+// (1: a lone CTA), each taking ceil(n / ctas) lanes, at most 16,384;
+// allocates nothing.  Returns the cudaError_t of the launch (0 =
+// success), or cudaErrorInvalidValue for a plan it does not run.
+template <typename K>
+int launch_sweep(void* table, int cap, const void* keys, const void* valid, int n,
+                 const void* n_probes, int ctas, void* slot, void* is_new, void* stream) {
   if (n < 0 || cap < 1 || ctas < 1 || ctas > kMaxCluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int cta_lanes = (n + ctas - 1) / ctas;
   if (cta_lanes > kMaxCtaLanes) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = opt_in();
+  cudaError_t err = opt_in<K>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = cta_lanes >= kMaxThreads ? kMaxThreads : ((cta_lanes + 31) / 32) * 32;
   const int block = threads < 32 ? 32 : threads;
   const int extra = ctas > 1 ? kHandOver : 0;
-  const size_t smem = smem_bytes(cta_lanes, extra);
+  const size_t smem = smem_bytes<K>(cta_lanes, extra);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned long long* t = static_cast<unsigned long long*>(table);
+  K* t = static_cast<K*>(table);
   const unsigned c = static_cast<unsigned>(cap);
-  const unsigned long long* k = static_cast<const unsigned long long*>(keys);
+  const K* k = static_cast<const K*>(keys);
   const bool* v = static_cast<const bool*>(valid);
   const int* probes = static_cast<const int*>(n_probes);
   int* sl = static_cast<int*>(slot);
   bool* nw = static_cast<bool*>(is_new);
   if (ctas == 1) {
-    fused_upsert_kernel<false><<<1, block, smem, s>>>(t, c, k, v, n, cta_lanes, extra, probes, sl,
-                                                       nw);
+    fused_upsert_kernel<K, false><<<1, block, smem, s>>>(t, c, k, v, n, cta_lanes, extra, probes,
+                                                          sl, nw);
   } else {
     cudaLaunchAttribute cluster_dim[1];
     cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
@@ -470,9 +500,28 @@ extern "C" int fused_upsert_launch(void* table, int cap, const void* keys, const
     config.stream = s;
     config.attrs = cluster_dim;
     config.numAttrs = 1;
-    err = cudaLaunchKernelEx(&config, fused_upsert_kernel<true>, t, c, k, v, n, cta_lanes, extra,
-                             probes, sl, nw);
+    err = cudaLaunchKernelEx(&config, fused_upsert_kernel<K, true>, t, c, k, v, n, cta_lanes,
+                             extra, probes, sl, nw);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The sweep of 64-bit keys (uint64 table words): see launch_sweep.
+extern "C" int fused_upsert_launch(void* table, int cap, const void* keys, const void* valid,
+                                   int n, const void* n_probes, int ctas, void* slot,
+                                   void* is_new, void* stream) {
+  return launch_sweep<unsigned long long>(table, cap, keys, valid, n, n_probes, ctas, slot,
+                                          is_new, stream);
+}
+
+// The sweep of 32-bit keys (uint32 table words, 4-byte keys in shared
+// memory): see launch_sweep.
+extern "C" int fused_upsert32_launch(void* table, int cap, const void* keys, const void* valid,
+                                     int n, const void* n_probes, int ctas, void* slot,
+                                     void* is_new, void* stream) {
+  return launch_sweep<unsigned>(table, cap, keys, valid, n, n_probes, ctas, slot, is_new,
+                                stream);
 }

@@ -4,6 +4,12 @@
 // Replaces the TPU kernel repro/kernels/pattern_mine.py::pattern_mine
 // (the pl.pallas_call at pattern_mine.py:174, body mine_body at :75).
 //
+// Two instances, one for each key width of the reference: 64-bit keys
+// (pattern_mine_launch) and 32-bit keys (pattern_mine32_launch).  The
+// width sets mix_keys (the 64-bit packing-or-hash, or the 32-bit hash),
+// the all-ones key, and the key word of the hash tables (8 or 4 bytes a
+// slot in shared memory); the design below is the same for both.
+//
 // For each edge e of a dedup'd batch of n edges (n a power of two):
 //   fan_out[e] = #{valid f : tag(src, etype, A1) equal}   (hub fan-out)
 //   fan_in[e]  = #{valid f : tag(dst, etype, A2) equal}   (hub fan-in)
@@ -76,7 +82,11 @@
 // 45 B an edge, 0.11 us at the path's 8,192 edges at 3.35 TB/s), in
 // practice the latency of two launches, three cluster barriers and the
 // round trips of each lane's probes and atomics to (mostly) another SM's
-// shared memory, on 24 SMs from 8,192 edges up.
+// shared memory, on 24 SMs from 8,192 edges up.  So the 32-bit instance
+// (4-byte keys: 33 B an edge) is about as fast as the 64-bit one: 0.0167
+// ms against 0.0177 on the 32-bit ingest path's largest batch (8,192
+// edges), 0.0122 against 0.0130 at 512 (chip_smoke.py phase 28, the same
+// keys zero-extended for the 64-bit instance).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -96,12 +106,17 @@ constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kMaxTrips = kSlotsPerCta / 2 / kThreads;  // 8 lanes a thread at most
 constexpr int kFlagThreads = 256;
 constexpr int kMaxDevices = 64;  // devices whose shared-memory opt-in is tracked
-constexpr uint64_t kEmpty = ~0ull;  // empty slot, and the reference's sentinel
 constexpr uint64_t kC1 = 0x9E3779B97F4A7C15ull;
 constexpr uint64_t kC2 = 0xBF58476D1CE4E5B9ull;
 constexpr uint64_t kC3 = 0x94D049BB133111EBull;
+constexpr uint32_t kC1_32 = 0x9E3779B9u;
+constexpr uint32_t kC2_32 = 0x85EBCA6Bu;
 constexpr int kTagStarOut = 0xA1, kTagStarIn = 0xA2, kTagChain = 0xA3, kTagHot = 0xA4;
 enum Vector { kGS = 0, kGD = 1, kTails = 2 };
+
+// The empty slot, and the reference's sentinel: the all-ones key.
+template <typename K>
+constexpr K kEmpty = ~K(0);
 
 // A CTA's reductions, after its slots' keys and counts.
 struct Reduced {
@@ -117,13 +132,14 @@ __host__ __device__ constexpr int slots_per_cta(int n, int ctas) {
   return 2 * (n > kMinLanes ? n : kMinLanes) / ctas;
 }
 
+template <typename K>
 constexpr size_t smem_bytes(int slots) {
-  return static_cast<size_t>(slots) * (sizeof(uint64_t) + sizeof(unsigned)) + sizeof(Reduced);
+  return static_cast<size_t>(slots) * (sizeof(K) + sizeof(unsigned)) + sizeof(Reduced);
 }
 
-// core/compression.py::mix_keys: exact 27/27/8-bit packing when the ids
-// fit, else the splitmix hash with bit 63 set; the sentinel and 0 are
-// remapped away.  `dst` is the int64 value as uint64 bits.
+// core/compression.py::mix_keys at 64 bits: exact 27/27/8-bit packing
+// when the ids fit, else the splitmix hash with bit 63 set; the sentinel
+// and 0 are remapped away.  `dst` is the int64 value as uint64 bits.
 __device__ __forceinline__ uint64_t mix_keys(uint64_t src, uint64_t dst, int etype) {
   const uint64_t et = static_cast<uint64_t>(static_cast<int64_t>(etype));
   uint64_t x = src * kC1 + dst;
@@ -132,16 +148,30 @@ __device__ __forceinline__ uint64_t mix_keys(uint64_t src, uint64_t dst, int ety
   x = x + et;
   const bool fits = src < (1ull << 27) && dst < (1ull << 27) && etype >= 0 && et < (1ull << 8);
   x = fits ? ((1ull << 62) | (src << 35) | (dst << 8) | et) : (x | (1ull << 63));
-  if (x == kEmpty) x = kEmpty - 1;
+  if (x == kEmpty<uint64_t>) x = kEmpty<uint64_t> - 1;
   return x == 0 ? 2 : x;
 }
 
-// Pattern signature: id x etype x pattern-class tag (etype in the "dst" place).
-__device__ __forceinline__ uint64_t tag_key(uint64_t id, int etype, int tag) {
-  return mix_keys(id, static_cast<uint64_t>(static_cast<int64_t>(etype)), tag);
+// mix_keys at 32 bits: the 32-bit splitmix-style hash alone, in uint32
+// arithmetic; the sentinel and 0 are remapped away.
+__device__ __forceinline__ uint32_t mix_keys(uint32_t src, uint32_t dst, int etype) {
+  uint32_t x = src * kC1_32 + dst;
+  x = (x ^ (x >> 30)) * kC2_32;
+  x = x ^ (x >> 27);
+  x = x + static_cast<uint32_t>(etype);
+  if (x == kEmpty<uint32_t>) x = kEmpty<uint32_t> - 1;
+  return x == 0 ? 2 : x;
 }
 
-// A key's first slot: the splitmix64 finalizer, to be masked to S.
+// Pattern signature: id x etype x pattern-class tag (etype, converted to
+// the key width as the reference's astype does, in the "dst" place).
+template <typename K>
+__device__ __forceinline__ K tag_key(K id, int etype, int tag) {
+  return mix_keys(id, static_cast<K>(static_cast<int64_t>(etype)), tag);
+}
+
+// A key's first slot: the splitmix64 finalizer of the key (a 32-bit key
+// zero-extended), to be masked to S.
 __device__ __forceinline__ unsigned slot_of(uint64_t k) {
   k = (k ^ (k >> 30)) * kC2;
   k = (k ^ (k >> 27)) * kC3;
@@ -168,16 +198,23 @@ __device__ __forceinline__ void sync() {
   }
 }
 
+// atomicCAS on a table word of either width.
+__device__ __forceinline__ uint64_t cas(uint64_t* p, uint64_t expected, uint64_t key) {
+  return atomicCAS(reinterpret_cast<unsigned long long*>(p), expected, key);
+}
+
+__device__ __forceinline__ uint32_t cas(uint32_t* p, uint32_t expected, uint32_t key) {
+  return atomicCAS(reinterpret_cast<unsigned*>(p), expected, key);
+}
+
 // Adds `add` lanes of `key` to the table (to the count where `counted`).
-template <bool kCluster>
-__device__ __forceinline__ void insert(uint64_t* keys, unsigned* counts, unsigned mask,
-                                       int log_spc, uint64_t key, unsigned add, bool counted) {
+template <typename K, bool kCluster>
+__device__ __forceinline__ void insert(K* keys, unsigned* counts, unsigned mask, int log_spc,
+                                       K key, unsigned add, bool counted) {
   unsigned s = slot_of(key) & mask;
   for (unsigned probe = 0; probe <= mask; ++probe, s = (s + 1) & mask) {
-    unsigned long long cur =
-        atomicCAS(reinterpret_cast<unsigned long long*>(at<kCluster>(keys, s, log_spc)), kEmpty,
-                  key);
-    if (cur == kEmpty || cur == key) {
+    const K cur = cas(at<kCluster>(keys, s, log_spc), kEmpty<K>, key);
+    if (cur == kEmpty<K> || cur == key) {
       if (counted) atomicAdd(at<kCluster>(counts, s, log_spc), add);
       return;
     }
@@ -185,13 +222,13 @@ __device__ __forceinline__ void insert(uint64_t* keys, unsigned* counts, unsigne
 }
 
 // The slot holding `key`, or -1 where it is not in the table.
-template <bool kCluster>
-__device__ __forceinline__ int find(uint64_t* keys, unsigned mask, int log_spc, uint64_t key) {
+template <typename K, bool kCluster>
+__device__ __forceinline__ int find(K* keys, unsigned mask, int log_spc, K key) {
   unsigned s = slot_of(key) & mask;
   for (unsigned probe = 0; probe <= mask; ++probe, s = (s + 1) & mask) {
-    const uint64_t cur = *at<kCluster>(keys, s, log_spc);
+    const K cur = *at<kCluster>(keys, s, log_spc);
     if (cur == key) return static_cast<int>(s);
-    if (cur == kEmpty) return -1;
+    if (cur == kEmpty<K>) return -1;
   }
   return -1;
 }
@@ -202,18 +239,19 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
   return v;
 }
 
-template <bool kCluster>
+template <typename K, bool kCluster>
 __global__ void __launch_bounds__(kThreads)
-pattern_mine_count_kernel(const uint64_t* __restrict__ src, const uint64_t* __restrict__ dst,
+pattern_mine_count_kernel(const K* __restrict__ src, const K* __restrict__ dst,
                           const int* __restrict__ etype, const bool* __restrict__ valid, int n,
                           int* __restrict__ fan_out, int* __restrict__ fan_in,
                           uint8_t* __restrict__ member) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr K kNone = kEmpty<K>;
   const int ctas = gridDim.x / 3;  // a 1-D cluster's ranks are consecutive blocks
   const int spc = slots_per_cta(n, ctas);
-  uint64_t* keys = reinterpret_cast<uint64_t*>(smem);
-  unsigned* counts = reinterpret_cast<unsigned*>(smem + spc * sizeof(uint64_t));
-  Reduced* red = reinterpret_cast<Reduced*>(smem + spc * (sizeof(uint64_t) + sizeof(unsigned)));
+  K* keys = reinterpret_cast<K*>(smem);
+  unsigned* counts = reinterpret_cast<unsigned*>(smem + spc * sizeof(K));
+  Reduced* red = reinterpret_cast<Reduced*>(smem + spc * (sizeof(K) + sizeof(unsigned)));
   const int rank = blockIdx.x % ctas;
   const int vec = blockIdx.x / ctas;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -224,7 +262,7 @@ pattern_mine_count_kernel(const uint64_t* __restrict__ src, const uint64_t* __re
 
   // a. clear this CTA's slots
   for (int s = tid; s < spc; s += nt) {
-    keys[s] = kEmpty;
+    keys[s] = kNone;
     counts[s] = 0;
   }
   if (tid == 0) {
@@ -234,25 +272,25 @@ pattern_mine_count_kernel(const uint64_t* __restrict__ src, const uint64_t* __re
   sync<kCluster>();
 
   // b. this CTA's lanes' keys, then their inserts
-  uint64_t mine[kMaxTrips];
+  K mine[kMaxTrips];
   bool flag = false;
   unsigned long long top = 0;
 #pragma unroll
   for (int t = 0; t < kMaxTrips; ++t) {
-    mine[t] = kEmpty;
+    mine[t] = kNone;
     const int l = t * nt + tid;
     if (t < trips && l < lanes) {
       const int i = first + l;
       const bool v = valid[i];
       if (vec == kTails) {
-        const uint64_t s = src[i];
-        flag |= !v || s == kEmpty;
-        mine[t] = v ? s : kEmpty;  // the all-ones tail is never inserted
+        const K s = src[i];
+        flag |= !v || s == kNone;
+        mine[t] = v ? s : kNone;  // the all-ones tail is never inserted
       } else {
         flag |= !v;
         if (v) {
-          mine[t] = vec == kGS ? tag_key(src[i], etype[i], kTagStarOut)
-                               : tag_key(dst[i], etype[i], kTagStarIn);
+          mine[t] = vec == kGS ? tag_key<K>(src[i], etype[i], kTagStarOut)
+                               : tag_key<K>(dst[i], etype[i], kTagStarIn);
           top = max(top, static_cast<unsigned long long>(mine[t]));
         }
       }
@@ -261,10 +299,10 @@ pattern_mine_count_kernel(const uint64_t* __restrict__ src, const uint64_t* __re
 #pragma unroll
   for (int t = 0; t < kMaxTrips; ++t) {
     if (t < trips) {  // uniform over the block: every thread of a warp takes part
-      const uint64_t key = mine[t];
+      const K key = mine[t];
       const unsigned peers = __match_any_sync(0xffffffffu, key);
-      if (key != kEmpty && (tid & 31) == __ffs(peers) - 1) {
-        insert<kCluster>(keys, counts, mask, log_spc, key, __popc(peers), vec != kTails);
+      if (key != kNone && (tid & 31) == __ffs(peers) - 1) {
+        insert<K, kCluster>(keys, counts, mask, log_spc, key, __popc(peers), vec != kTails);
       }
     }
   }
@@ -300,13 +338,13 @@ pattern_mine_count_kernel(const uint64_t* __restrict__ src, const uint64_t* __re
     if (t < trips && l < lanes) {
       const int i = first + l;
       if (vec == kTails) {
-        const uint64_t d = dst[i];
-        member[i] = d == kEmpty ? any_flag : find<kCluster>(keys, mask, log_spc, d) >= 0;
+        const K d = dst[i];
+        member[i] = d == kNone ? any_flag : find<K, kCluster>(keys, mask, log_spc, d) >= 0;
       } else {
-        const uint64_t key = mine[t];
+        const K key = mine[t];
         int fan = 0;
-        if (key != kEmpty) {
-          const int s = find<kCluster>(keys, mask, log_spc, key);
+        if (key != kNone) {
+          const int s = find<K, kCluster>(keys, mask, log_spc, key);
           fan = s < 0 ? 0 : static_cast<int>(*at<kCluster>(counts, s, log_spc));
           fan += past_end && key == all_top;
         }
@@ -318,13 +356,14 @@ pattern_mine_count_kernel(const uint64_t* __restrict__ src, const uint64_t* __re
   if constexpr (kCluster) cg::this_cluster().sync();
 }
 
+template <typename K>
 __global__ void __launch_bounds__(kFlagThreads)
-pattern_mine_flags_kernel(const uint64_t* __restrict__ src, const uint64_t* __restrict__ dst,
+pattern_mine_flags_kernel(const K* __restrict__ src, const K* __restrict__ dst,
                           const int* __restrict__ etype, const int* __restrict__ count,
                           const bool* __restrict__ valid, int n, int star_min, int hot_min,
                           const int* __restrict__ fan_out, const int* __restrict__ fan_in,
                           const uint8_t* __restrict__ member, int* __restrict__ flags,
-                          uint64_t* __restrict__ psig) {
+                          K* __restrict__ psig) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   if (!valid[e]) {
@@ -332,20 +371,20 @@ pattern_mine_flags_kernel(const uint64_t* __restrict__ src, const uint64_t* __re
     psig[e] = 0;
     return;
   }
-  const uint64_t s = src[e], d = dst[e];
+  const K s = src[e], d = dst[e];
   const int et = etype[e];
   const bool chain = member[e] != 0 && d != s;
   const bool staro = fan_out[e] >= star_min, stari = fan_in[e] >= star_min;
   const bool hot = count[e] >= hot_min;
-  uint64_t sig = 0;
+  K sig = 0;
   if (staro) {
-    sig = tag_key(s, et, kTagStarOut);
+    sig = tag_key<K>(s, et, kTagStarOut);
   } else if (stari) {
-    sig = tag_key(d, et, kTagStarIn);
+    sig = tag_key<K>(d, et, kTagStarIn);
   } else if (chain) {
-    sig = tag_key(d, et, kTagChain);
+    sig = tag_key<K>(d, et, kTagChain);
   } else if (hot) {
-    sig = tag_key(s, et, kTagHot);
+    sig = tag_key<K>(s, et, kTagHot);
   }
   flags[e] = (staro ? 1 : 0) + (stari ? 2 : 0) + (chain ? 4 : 0) + (hot ? 8 : 0);
   psig[e] = sig;
@@ -353,7 +392,9 @@ pattern_mine_flags_kernel(const uint64_t* __restrict__ src, const uint64_t* __re
 
 // The opt-in above 48 KB of dynamic shared memory is an attribute of
 // each kernel on each device: set it on the first call there only.  The
-// count kernel declares no static shared memory (F17).
+// count kernel declares no static shared memory (F17).  Each key width
+// keeps its own record.
+template <typename K>
 cudaError_t opt_in() {
   static std::atomic<bool> opted_in[kMaxDevices];
   int device = 0;
@@ -361,11 +402,11 @@ cudaError_t opt_in() {
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!opted_in[device].load(std::memory_order_acquire)) {
-    const int bytes = static_cast<int>(smem_bytes(kSlotsPerCta));
-    err = cudaFuncSetAttribute(pattern_mine_count_kernel<false>,
+    const int bytes = static_cast<int>(smem_bytes<K>(kSlotsPerCta));
+    err = cudaFuncSetAttribute(pattern_mine_count_kernel<K, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(pattern_mine_count_kernel<true>,
+    err = cudaFuncSetAttribute(pattern_mine_count_kernel<K, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     opted_in[device].store(true, std::memory_order_release);
@@ -373,39 +414,37 @@ cudaError_t opt_in() {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// Launches the miner on `stream` with `ctas` CTAs in each vector's
-// cluster (kernels/pattern_mine.py::cluster_plan); allocates nothing.  n
-// must be a power of two up to 65,536 and `ctas` a power of two up to 8
-// that divides n and leaves each CTA at most 16,384 slots and 8 lanes a
-// thread; `member` is an n-byte scratch.  Returns the cudaError_t of the
-// first launch that failed (0 = success), or cudaErrorInvalidValue for a
-// shape or plan it does not run.
-extern "C" int pattern_mine_launch(const void* src, const void* dst, const void* etype,
-                                   const void* count, const void* valid, int n, int star_min,
-                                   int hot_min, int ctas, void* fan_out, void* fan_in,
-                                   void* flags, void* psig, void* member, void* stream) {
+// Launches the miner of K keys on `stream` with `ctas` CTAs in each
+// vector's cluster (kernels/pattern_mine.py::cluster_plan); allocates
+// nothing.  n must be a power of two up to 65,536 and `ctas` a power of
+// two up to 8 that divides n and leaves each CTA at most 16,384 slots and
+// 8 lanes a thread; `member` is an n-byte scratch.  Returns the
+// cudaError_t of the first launch that failed (0 = success), or
+// cudaErrorInvalidValue for a shape or plan it does not run.
+template <typename K>
+int launch_miner(const void* src, const void* dst, const void* etype, const void* count,
+                 const void* valid, int n, int star_min, int hot_min, int ctas, void* fan_out,
+                 void* fan_in, void* flags, void* psig, void* member, void* stream) {
   if (n < 1 || (n & (n - 1)) != 0 || n > kMaxLanes || ctas < 1 || ctas > kMaxCluster ||
       (ctas & (ctas - 1)) != 0 || n % ctas != 0 || slots_per_cta(n, ctas) > kSlotsPerCta ||
       n / ctas > kMaxTrips * kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = opt_in();
+  cudaError_t err = opt_in<K>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int lanes = n / ctas;
   const int threads = lanes < 32 ? 32 : (lanes < kThreads ? lanes : kThreads);
-  const size_t smem = smem_bytes(slots_per_cta(n, ctas));
-  const uint64_t* s64 = static_cast<const uint64_t*>(src);
-  const uint64_t* d64 = static_cast<const uint64_t*>(dst);
+  const size_t smem = smem_bytes<K>(slots_per_cta(n, ctas));
+  const K* sk = static_cast<const K*>(src);
+  const K* dk = static_cast<const K*>(dst);
   const int* et = static_cast<const int*>(etype);
   const bool* v = static_cast<const bool*>(valid);
   int* fo = static_cast<int*>(fan_out);
   int* fi = static_cast<int*>(fan_in);
   uint8_t* mem = static_cast<uint8_t*>(member);
   if (ctas == 1) {
-    pattern_mine_count_kernel<false><<<3, threads, smem, s>>>(s64, d64, et, v, n, fo, fi, mem);
+    pattern_mine_count_kernel<K, false><<<3, threads, smem, s>>>(sk, dk, et, v, n, fo, fi, mem);
   } else {
     cudaLaunchAttribute cluster_dim[1];
     cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
@@ -419,14 +458,35 @@ extern "C" int pattern_mine_launch(const void* src, const void* dst, const void*
     config.stream = s;
     config.attrs = cluster_dim;
     config.numAttrs = 1;
-    err = cudaLaunchKernelEx(&config, pattern_mine_count_kernel<true>, s64, d64, et, v, n, fo,
+    err = cudaLaunchKernelEx(&config, pattern_mine_count_kernel<K, true>, sk, dk, et, v, n, fo,
                              fi, mem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  pattern_mine_flags_kernel<<<(n + kFlagThreads - 1) / kFlagThreads, kFlagThreads, 0, s>>>(
-      s64, d64, et, static_cast<const int*>(count), v, n, star_min, hot_min, fo, fi, mem,
-      static_cast<int*>(flags), static_cast<uint64_t*>(psig));
+  pattern_mine_flags_kernel<K><<<(n + kFlagThreads - 1) / kFlagThreads, kFlagThreads, 0, s>>>(
+      sk, dk, et, static_cast<const int*>(count), v, n, star_min, hot_min, fo, fi, mem,
+      static_cast<int*>(flags), static_cast<K*>(psig));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The miner of 64-bit keys: see launch_miner.
+extern "C" int pattern_mine_launch(const void* src, const void* dst, const void* etype,
+                                   const void* count, const void* valid, int n, int star_min,
+                                   int hot_min, int ctas, void* fan_out, void* fan_in,
+                                   void* flags, void* psig, void* member, void* stream) {
+  return launch_miner<uint64_t>(src, dst, etype, count, valid, n, star_min, hot_min, ctas,
+                                fan_out, fan_in, flags, psig, member, stream);
+}
+
+// The miner of 32-bit keys (4-byte keys in the hash tables): see
+// launch_miner.
+extern "C" int pattern_mine32_launch(const void* src, const void* dst, const void* etype,
+                                     const void* count, const void* valid, int n, int star_min,
+                                     int hot_min, int ctas, void* fan_out, void* fan_in,
+                                     void* flags, void* psig, void* member, void* stream) {
+  return launch_miner<uint32_t>(src, dst, etype, count, valid, n, star_min, hot_min, ctas,
+                                fan_out, fan_in, flags, psig, member, stream);
 }
 

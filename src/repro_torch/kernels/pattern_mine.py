@@ -9,7 +9,8 @@ sorted-vector problems over the dedup'd batch:
   hot edges      within-batch multiplicity >= hot_min
 
 Each admitted edge carries a pattern signature (the hub or relay id
-mixed with a pattern tag).  Keys are int64 tensors holding uint64 bits.
+mixed with a pattern tag).  Keys are int64 tensors holding uint64 bits
+or int32 tensors holding uint32 bits; the signature has the keys' width.
 The plain version `pattern_mine_ref` sorts and searches as the
 reference does, on sign-flipped keys, whose signed order is the
 unsigned order; invalid lanes hold the all-ones sentinel, which sorts
@@ -18,7 +19,8 @@ last.
 `pattern_mine` is the wrapper: on CUDA tensors it launches the
 hand-written kernels of `csrc/pattern_mine.cu`, which count the three
 vectors' keys in hash tables in (distributed) shared memory instead of
-sorting them, by the plan `cluster_plan` gives; on CPU tensors it runs
+sorting them, by the plan `cluster_plan` gives, through the 64-bit entry
+or the 32-bit one by the keys' dtype; on CPU tensors it runs
 `pattern_mine_ref`.
 """
 from __future__ import annotations
@@ -54,6 +56,9 @@ MIN_TABLE_LANES = 64
 SLOTS_PER_CTA = 1 << 14
 MAX_CLUSTER = 8
 CLUSTER_LANES = 1 << 11
+# the kernel's instance for each key dtype: its C entry, and its name in
+# `build.launches`
+ENTRIES = {torch.int64: "pattern_mine", torch.int32: "pattern_mine32"}
 
 Mined = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -75,8 +80,9 @@ def _bisect(sorted_keys: torch.Tensor, q: torch.Tensor, right: bool) -> torch.Te
 
 
 def _tag(ids: torch.Tensor, etype: torch.Tensor, tag: int) -> torch.Tensor:
-    """Pattern signature: hub/relay id x etype x pattern-class tag."""
-    return mix_keys(ids, etype.to(torch.int64), torch.full_like(etype, tag))
+    """Pattern signature: hub/relay id x etype x pattern-class tag, at
+    the ids' width."""
+    return mix_keys(ids, etype.to(ids.dtype), torch.full_like(etype, tag))
 
 
 def pattern_mine_ref(src: torch.Tensor, dst: torch.Tensor, etype: torch.Tensor,
@@ -85,8 +91,8 @@ def pattern_mine_ref(src: torch.Tensor, dst: torch.Tensor, etype: torch.Tensor,
     """Plain PyTorch version of the reference's `mine_body`, with
     `torch.sort` on flipped keys for the sort.  Returns (fan_out,
     fan_in, flags, psig): int32 fan counts (0 on invalid lanes), the
-    int32 FLAG_* mask, and the int64 pattern signature (0 where flags
-    is 0)."""
+    int32 FLAG_* mask, and the pattern signature at the keys' width (0
+    where flags is 0)."""
     sentinel = torch.full_like(src, SENTINEL)
     gs = _tag(src, etype, TAG_STAR_OUT)  # (src, etype) group key
     gd = _tag(dst, etype, TAG_STAR_IN)  # (dst, etype) group key
@@ -129,9 +135,10 @@ def _check(src, dst, etype, count, valid):
     tensors = (src, dst, etype, count, valid)
     if any(t.shape != (n,) for t in tensors):
         raise ValueError("src, dst, etype, count and valid must be (n,)")
-    if (src.dtype, dst.dtype, etype.dtype, count.dtype, valid.dtype) != \
-            (torch.int64, torch.int64, torch.int32, torch.int32, torch.bool):
-        raise TypeError("src/dst must be int64 (uint64 bits), etype/count int32, valid bool")
+    if (src.dtype not in ENTRIES or dst.dtype != src.dtype
+            or (etype.dtype, count.dtype, valid.dtype) != (torch.int32, torch.int32, torch.bool)):
+        raise TypeError("src/dst must be both int64 (uint64 bits) or both int32 (uint32 "
+                        "bits), etype/count int32, valid bool")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("every operand of pattern_mine must be contiguous")
     devices = {t.device for t in tensors}
@@ -153,15 +160,17 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
 def launch(src, dst, etype, count, valid, star_min, hot_min, ctas) -> Mined:
     """The kernels on CUDA tensors that `_check` passed, with `ctas` CTAs
     in each vector's cluster (a power of two up to MAX_CLUSTER that
-    divides n and leaves a CTA at most SLOTS_PER_CTA slots).
-    `pattern_mine` passes `cluster_plan(n)`; tools/k5_plan.py times
-    every plan the kernel takes."""
-    fn = build.library("pattern_mine").pattern_mine_launch
+    divides n and leaves a CTA at most SLOTS_PER_CTA slots), through the
+    instance of the keys' width (`ENTRIES`).  `pattern_mine` passes
+    `cluster_plan(n)`; tools/k5_plan.py times every plan the kernel
+    takes."""
+    name = ENTRIES[src.dtype]
+    fn = getattr(build.library("pattern_mine"), f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     n, dev = src.shape[0], src.device
     counts = torch.empty((3, n), dtype=torch.int32, device=dev)
-    psig = torch.empty(n, dtype=torch.int64, device=dev)
+    psig = torch.empty(n, dtype=src.dtype, device=dev)
     member = torch.empty(n, dtype=torch.uint8, device=dev)  # dst is some valid tail
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(src.data_ptr(), dst.data_ptr(), etype.data_ptr(), count.data_ptr(),
@@ -170,7 +179,7 @@ def launch(src, dst, etype, count, valid, star_min, hot_min, ctas) -> Mined:
              stream)
     if err != 0:
         raise RuntimeError(f"pattern_mine launch failed: cudaError {err}")
-    build.launches["pattern_mine"] += 1
+    build.launches[name] += 1
     return counts[0], counts[1], counts[2], psig
 
 
@@ -179,7 +188,7 @@ def pattern_mine(src: torch.Tensor, dst: torch.Tensor, etype: torch.Tensor,
                  hot_min: int) -> Mined:
     """Mine one dedup'd batch: (fan_out, fan_in, flags, psig).
 
-    src/dst (n,) int64 key bits; etype/count (n,) int32; valid (n,)
+    src/dst (n,) key bits, both int64 or both int32; etype/count (n,) int32; valid (n,)
     bool; n a power of two up to 65,536; star_min/hot_min int
     thresholds.  CUDA tensors launch the kernel, CPU tensors run
     `pattern_mine_ref`."""

@@ -21,10 +21,14 @@ returns fresh copies instead.  The CTAs, threads and whether the degree
 rows are privatised in shared memory come from the host's
 `launch_plan`; `launch` runs the kernel under any plan it takes.
 
-Keys are int64 tensors holding uint64 bits.  The hash is uint32
-arithmetic, carried in int64 and masked to 32 bits after every add and
-multiply (a product of two 32-bit values may wrap past 2^63, but its low
-32 bits stay right).
+Keys are int64 tensors holding uint64 bits, or int32 tensors holding
+uint32 bits.  The hash is uint32 arithmetic on the key folded to 32 bits
+(key ^ key >> 32 of a uint64, the key itself of a uint32), carried in
+int64 and masked to 32 bits after every add and multiply (a product of
+two 32-bit values may wrap past 2^63, but its low 32 bits stay right).
+`sketch_absorb` widens 32-bit keys at the wrapper, zero-extended to
+int64: the fold leaves a key with a zero high word as it is, so the
+kernel's 64-bit key loads hash them as the reference hashes uint32 keys.
 """
 from __future__ import annotations
 
@@ -92,8 +96,18 @@ def launch_plan(n: int, depth: int, width: int) -> Plan:
 # ---------------------------------------------------------------------------
 
 
+def widen(keys: torch.Tensor) -> torch.Tensor:
+    """Key bits as int64: 64-bit keys as they are, 32-bit keys
+    zero-extended (never sign-extended)."""
+    if C.key_bits(keys.dtype) == 64:
+        return keys
+    return keys.to(torch.int64) & _M32
+
+
 def _fold32(keys: torch.Tensor) -> torch.Tensor:
-    """uint32(key ^ (key >> 32)) of uint64 key bits, as int64."""
+    """uint32(key ^ (key >> 32)) of uint64 key bits, or the uint32 key
+    itself, as int64 (the reference's `_fold32` at either width)."""
+    keys = widen(keys)
     return (keys ^ C.lsr(keys, 32)) & _M32
 
 
@@ -139,14 +153,16 @@ def _check(edge_w, out_deg, in_deg, a, b, cnt, fused):
     n = cnt.shape[0] if cnt.dim() == 1 else -1
     if out_deg.shape != (D, W) or in_deg.shape != (D, W):
         raise ValueError("out_deg and in_deg must be (D, W)")
-    want, key_dtype = ((n,), torch.int64) if fused else ((D, n), torch.int32)
+    want = (n,) if fused else (D, n)
     if a.shape != want or b.shape != want:
         raise ValueError(f"cnt must be (n,) and the {'keys' if fused else 'coordinates'} "
                          f"{want}")
     if any(t.dtype != torch.int32 for t in (edge_w, out_deg, in_deg, cnt)):
         raise TypeError("edge_w, out_deg, in_deg and cnt must be int32")
-    if a.dtype != key_dtype or b.dtype != key_dtype:
-        raise TypeError(f"the {'keys' if fused else 'coordinates'} must be {key_dtype}")
+    if fused and (a.dtype not in C.KEY_DTYPES or b.dtype != a.dtype):
+        raise TypeError("the keys must be both int64 (uint64 bits) or both int32 (uint32 bits)")
+    if not fused and (a.dtype != torch.int32 or b.dtype != torch.int32):
+        raise TypeError("the coordinates must be torch.int32")
     tensors = (edge_w, out_deg, in_deg, a, b, cnt)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("every operand of the sketch scatter must be contiguous")
@@ -161,8 +177,9 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 def launch(edge_w, out_deg, in_deg, a, b, cnt, fused: bool, plan: Plan) -> Sketch3:
     """The kernel on CUDA tensors that `_check` passed, under `plan`:
     a, b are r, c (D, n) int32, or with `fused` the src, dst key bits
-    (n,) int64.  The entries pass `launch_plan`; tools/k3_plan.py and
-    chip_smoke.py run every plan the kernel takes."""
+    (n,) int64 (`sketch_absorb` widens 32-bit keys first).  The entries
+    pass `launch_plan`; tools/k3_plan.py and chip_smoke.py run every plan
+    the kernel takes."""
     D, W = out_deg.shape
     n = cnt.shape[0]
     if D * n == 0:
@@ -204,13 +221,14 @@ def sketch_absorb(edge_w: torch.Tensor, out_deg: torch.Tensor, in_deg: torch.Ten
     (edge_w, out_deg, in_deg).
 
     edge_w (D, W, W) int32; out_deg/in_deg (D, W) int32; src/dst (n,)
-    int64 key bits; cnt (n,) int32 edge counts (0 for invalid lanes).
-    CUDA tensors launch the kernel, which hashes the keys itself; CPU
-    tensors run `sketch_absorb_ref`."""
+    key bits, both int64 or both int32; cnt (n,) int32 edge counts (0
+    for invalid lanes).  CUDA tensors launch the kernel, which hashes the
+    keys itself (32-bit keys zero-extended first, `widen`); CPU tensors
+    run `sketch_absorb_ref`."""
     _check(edge_w, out_deg, in_deg, src, dst, cnt, True)
     if edge_w.device.type == "cuda":
         D, W = out_deg.shape
-        return launch(edge_w, out_deg, in_deg, src, dst, cnt, True,
+        return launch(edge_w, out_deg, in_deg, widen(src), widen(dst), cnt, True,
                       launch_plan(cnt.shape[0], D, W))
     if edge_w.device.type == "cpu":
         return sketch_absorb_ref(edge_w, out_deg, in_deg, src, dst, cnt)

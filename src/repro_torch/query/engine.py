@@ -46,7 +46,8 @@ def top_k_degree(snap: GraphSnapshot, k: int = 10) -> Tuple[torch.Tensor, torch.
     score = torch.where(_live_nodes(snap), snap.node_degree,
                         torch.full_like(snap.node_degree, -1))
     v, i = stable_top_k(score, k)
-    return torch.where(v >= 0, snap.node_key[i], torch.zeros_like(i)), v.clamp(min=0)
+    keys = snap.node_key[i]
+    return torch.where(v >= 0, keys, torch.zeros_like(keys)), v.clamp(min=0)
 
 
 def k_hop(snap: GraphSnapshot, seed_keys: torch.Tensor, hops: int = 2,

@@ -19,8 +19,10 @@ commits.  Its hashing and scatter go through `kernels.ops.sketch_absorb`:
 one launch of the hand-written kernel on the card, the plain version
 (`node_hash` twice, then `sketch_scatter_ref`) on the CPU.
 
-Keys are int64 tensors holding uint64 bits; `node_hash` (from
-`kernels.sketch`) hashes them in uint32 arithmetic carried in int64.
+Keys are int64 tensors holding uint64 bits or int32 tensors holding
+uint32 bits (`init_sketch(key_dtype=)` sets the heavy-hitter table's;
+an update follows the edge table's); `node_hash` (from `kernels.sketch`)
+hashes them in uint32 arithmetic carried in int64.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ class GraphSketch:
     edge_w: torch.Tensor  # (D, W, W) int32 count-min of edge weights
     out_deg: torch.Tensor  # (D, W) int32 count-min of weighted out-degree
     in_deg: torch.Tensor  # (D, W) int32 count-min of weighted in-degree
-    hh_keys: torch.Tensor  # (K,) int64 key bits of heavy-hitter candidates; 0 = empty
+    hh_keys: torch.Tensor  # (K,) key bits of heavy-hitter candidates; 0 = empty
     hh_counts: torch.Tensor  # (K,) int32 their degree estimates
     n_updates: torch.Tensor  # scalar int32: total edge count absorbed
 
@@ -66,10 +68,12 @@ class GraphSketch:
 
 
 def init_sketch(depth: int = 4, width: int = 256, hh_slots: int = 64,
-                device: Union[str, torch.device, None] = None) -> GraphSketch:
-    """Fresh sketch on `device` (default the card); depth * width^2 * 4
-    bytes of edge weights (1 MB at the defaults)."""
+                device: Union[str, torch.device, None] = None,
+                key_dtype: torch.dtype = torch.int64) -> GraphSketch:
+    """Fresh sketch on `device` (default the card) for `key_dtype` keys;
+    depth * width^2 * 4 bytes of edge weights (1 MB at the defaults)."""
     dev = resolve(device)
+    kd = C.check_key_dtype(key_dtype)
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -78,7 +82,7 @@ def init_sketch(depth: int = 4, width: int = 256, hh_slots: int = 64,
         edge_w=z((depth, width, width), torch.int32),
         out_deg=z((depth, width), torch.int32),
         in_deg=z((depth, width), torch.int32),
-        hh_keys=z((hh_slots,), torch.int64),
+        hh_keys=z((hh_slots,), kd),
         hh_counts=z((hh_slots,), torch.int32),
         n_updates=z((), torch.int32),
     )
@@ -126,7 +130,8 @@ def _merge_top_k(hh_keys, hh_counts, cand_keys, cand_counts):
     run_best = torch.where(live, best, torch.full_like(best, -1))
     top_c, top_i = stable_top_k(run_best, K)
     keep = top_c > 0
-    return (torch.where(keep, run_keys[top_i], torch.zeros_like(top_i)),
+    top_k = run_keys[top_i]
+    return (torch.where(keep, top_k, torch.zeros_like(top_k)),
             torch.where(keep, top_c, torch.zeros_like(top_c)).to(torch.int32))
 
 
@@ -189,7 +194,8 @@ def sketch_heavy_hitters(sketch: GraphSketch, k: int = 10
     score = torch.where(sketch.hh_keys != 0, sketch.hh_counts,
                         torch.full_like(sketch.hh_counts, -1))
     v, i = stable_top_k(score, k)
-    return (torch.where(v > 0, sketch.hh_keys[i], torch.zeros_like(i)),
+    keys = sketch.hh_keys[i]
+    return (torch.where(v > 0, keys, torch.zeros_like(keys)),
             v.clamp(min=0))
 
 

@@ -24,8 +24,9 @@ cannot place.
 torch has no `mode="drop"` scatter: where the reference drops writes to
 index `cap`, the port scatters into arrays one slot longer and slices
 the trash slot off, so a dropped write never races with a real one.
-Keys are int64 tensors of uint64 bits; every key search runs on
-sign-flipped values (unsigned order).
+Keys are int64 tensors of uint64 bits or int32 tensors of uint32 bits,
+the store's; every key search runs on sign-flipped values (unsigned
+order).
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from repro_torch.telemetry.spans import NULL_REGISTRY
 @dataclasses.dataclass
 class GraphSnapshot:
     # nodes, sorted by key; slots >= n_nodes hold the sentinel
-    node_key: torch.Tensor  # (Ncap,) int64 key bits
+    node_key: torch.Tensor  # (Ncap,) key bits at the store's width
     node_count: torch.Tensor  # (Ncap,) int32
     node_degree: torch.Tensor  # (Ncap,) int32 (unique-edge endpoints, from store)
     # forward CSR: edges sorted by (src_idx, dst_idx, etype); invalid rows = Ncap
@@ -72,8 +73,8 @@ class GraphSnapshot:
 
 
 def _search_keys(sorted_keys: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
-    """Left insertion points (int32) of uint64 `keys` in unsigned-sorted
-    `sorted_keys`."""
+    """Left insertion points (int32) of unsigned `keys` in unsigned-sorted
+    `sorted_keys` (one width)."""
     return torch.searchsorted(C.flip_sign(sorted_keys), C.flip_sign(keys)).to(torch.int32)
 
 
@@ -247,7 +248,7 @@ def apply_delta(snap: GraphSnapshot, delta: CommitDelta
     pos_new = _masked(live_new, rank_new + torch.arange(new_keys.shape[0], dtype=i32,
                                                         device=dev), ncap)
 
-    node_key = _scatter_set(C.SENTINEL, ncap, torch.int64,
+    node_key = _scatter_set(C.SENTINEL, ncap, snap.node_key.dtype,
                             [(pos_base, snap.node_key), (pos_new, new_keys)], dev)
     node_count = _scatter_set(0, ncap, i32, [(pos_base, snap.node_count)], dev)
     node_degree = _scatter_set(0, ncap, i32, [(pos_base, snap.node_degree)], dev)

@@ -13,7 +13,9 @@ Counterpart of `repro.query.stage`.
     answers as `"sketch"` events on the `MetricsHub`.
 
 Both expose the reference's numpy surface: `degree`, `edge_weight`,
-`heavy_hitters` (keys as uint64) and `error_bound`.
+`heavy_hitters` (keys as uint64 or uint32, the sketch's width) and
+`error_bound`.  Query keys are taken at the sketch's width, as the
+reference's `jnp.asarray(keys, hh_keys.dtype)`.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core.compression import key_tensor
+from repro_torch.core.compression import key_tensor, unsigned_view
 from repro_torch.core.edge_table import from_raw_batch
 from repro_torch.core.transform import MappingSpec, create_edges, tweet_mapping
 from repro_torch.query.engine import top_k_degree
@@ -47,8 +49,9 @@ def _slice_raw(raw, lo: int, hi: int):
 
 
 def keys_to_numpy(keys: torch.Tensor) -> np.ndarray:
-    """int64 key bits on any device -> uint64 numpy (the reference's)."""
-    return keys.cpu().numpy().view(np.uint64)
+    """Key bits on any device -> uint64 or uint32 numpy by their width
+    (the reference's)."""
+    return unsigned_view(keys.cpu().numpy())
 
 
 class _SketchQueries:
@@ -56,14 +59,15 @@ class _SketchQueries:
 
     sketch: GraphSketch
 
+    def _keys(self, keys) -> torch.Tensor:
+        return key_tensor(keys, self.sketch.device, self.sketch.hh_keys.dtype)
+
     def degree(self, keys, mode: str = "total") -> np.ndarray:
-        k = key_tensor(keys, self.sketch.device)
-        return sketch_degree(self.sketch, k, mode=mode).cpu().numpy()
+        return sketch_degree(self.sketch, self._keys(keys), mode=mode).cpu().numpy()
 
     def edge_weight(self, src, dst) -> np.ndarray:
-        dev = self.sketch.device
-        return sketch_edge_weight(self.sketch, key_tensor(src, dev),
-                                  key_tensor(dst, dev)).cpu().numpy()
+        return sketch_edge_weight(self.sketch, self._keys(src),
+                                  self._keys(dst)).cpu().numpy()
 
     def heavy_hitters(self, k: int = 10):
         hk, hc = sketch_heavy_hitters(self.sketch, k)
@@ -75,7 +79,8 @@ class _SketchQueries:
 
 class SketchStage(_SketchQueries):
     """Stage-protocol pass-through observer keeping a graph sketch at
-    filter time, on `device` (default the card)."""
+    filter time, on `device` (default the card), for `key_dtype` keys
+    (a sketch given keeps its own width)."""
 
     name = "sketch"
 
@@ -83,9 +88,10 @@ class SketchStage(_SketchQueries):
                  mapping: Optional[MappingSpec] = None,
                  depth: int = 4, width: int = 256, hh_slots: int = 64,
                  max_edges_per_batch: int = 8_192,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 key_dtype: torch.dtype = torch.int64):
         self.sketch = sketch if sketch is not None else init_sketch(
-            depth=depth, width=width, hh_slots=hh_slots, device=device)
+            depth=depth, width=width, hh_slots=hh_slots, device=device, key_dtype=key_dtype)
         self.device = self.sketch.device
         self.mapping = mapping or tweet_mapping()
         self.max_edges_per_batch = max_edges_per_batch
@@ -102,7 +108,8 @@ class SketchStage(_SketchQueries):
                 for lo in range(0, raw.n_edges, self.max_edges_per_batch):
                     hi = min(lo + self.max_edges_per_batch, raw.n_edges)
                     cap = max(64, 1 << int(np.ceil(np.log2(hi - lo))))
-                    et = from_raw_batch(_slice_raw(raw, lo, hi), cap, device=self.device)
+                    et = from_raw_batch(_slice_raw(raw, lo, hi), cap, device=self.device,
+                                        key_dtype=self.sketch.hh_keys.dtype)
                     self.sketch = sketch_update(self.sketch, et)
         self.ticks_seen += 1
         return records
@@ -128,7 +135,7 @@ class QuerySink(_SketchQueries):
     current top-k heavy hitters goes to `hub` (when given);
     `exact_topk > 0` adds the exact top-k degrees from the maintained
     snapshot.  A new sketch is made on the device of the wrapped sink's
-    store, where the committed edge tables live."""
+    store, where the committed edge tables live, for keys of its width."""
 
     def __init__(self, inner, sketch: Optional[GraphSketch] = None,
                  depth: int = 4, width: int = 256, hh_slots: int = 64,
@@ -137,7 +144,8 @@ class QuerySink(_SketchQueries):
         self.telemetry = NULL_REGISTRY
         self.inner = inner
         self.sketch = sketch if sketch is not None else init_sketch(
-            depth=depth, width=width, hh_slots=hh_slots, device=inner.store.device)
+            depth=depth, width=width, hh_slots=hh_slots, device=inner.store.device,
+            key_dtype=inner.store.node_keys.dtype)
         self.hub = hub
         self.answer_every = max(1, answer_every)
         self.top_k = top_k

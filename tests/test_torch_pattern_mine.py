@@ -19,7 +19,8 @@ past-the-end one for GS and GD, and the flags pass.  It is held bit for
 bit to both packages' plain versions at 1 to 65,536 lanes and to the
 reference's Pallas kernel in interpret mode up to 1,024, on random,
 patterned, one-hub, extreme-id (0 and 2^64 - 1, with and without an
-invalid lane), all-invalid and all-valid batches.
+invalid lane), all-invalid and all-valid batches, and on one batch of
+32-bit keys (int32 bits) against the Pallas kernel at uint32.
 """
 import jax
 import jax.numpy as jnp
@@ -28,7 +29,7 @@ import pytest
 import torch
 
 from repro.kernels import pattern_mine as RM
-from repro_torch.core.compression import as_int64, lsr
+from repro_torch.core.compression import as_int64, flip_sign, lsr, signed_view, unsigned_view
 from repro_torch.kernels import pattern_mine as PM
 
 STAR_MIN, HOT_MIN = 4, 2
@@ -85,7 +86,8 @@ def _patterned_batch(rng, n, narrow):
 
 
 def _jax_ref(src, dst, et, count, valid, fn=RM.pattern_mine_ref, **kw):
-    with jax.enable_x64(True):
+    # 64-bit keys under x64, 32-bit keys without it, as the reference runs each
+    with jax.enable_x64(src.dtype == np.uint64):
         return [np.asarray(w) for w in fn(
             jnp.asarray(src), jnp.asarray(dst), jnp.asarray(et), jnp.asarray(count),
             jnp.asarray(valid), STAR_MIN, HOT_MIN, **kw)]
@@ -152,7 +154,10 @@ KINDS = ("random", "patterned", "hub", "extremes", "extremes_all_valid", "all_in
 
 
 def _slot_of(k):
-    """csrc slot_of: the splitmix64 finalizer (masked by the caller)."""
+    """csrc slot_of: the splitmix64 finalizer of the key, a 32-bit key
+    zero-extended (masked by the caller)."""
+    if k.dtype == torch.int32:
+        k = k.to(torch.int64) & 0xFFFFFFFF
     k = (k ^ lsr(k, 30)) * _F1
     k = (k ^ lsr(k, 27)) * _F2
     return k ^ lsr(k, 31)
@@ -162,11 +167,11 @@ class _Table:
     """One vector's table: S slots, CTA r holding slots r*spc .. r*spc+spc-1
     as row r of (ctas, spc) arrays, probed linearly across the rows."""
 
-    def __init__(self, n):
+    def __init__(self, n, key_dtype):
         self.ctas = PM.cluster_plan(n)
         self.spc = 2 * max(n, PM.MIN_TABLE_LANES) // self.ctas
         self.mask = self.ctas * self.spc - 1
-        self.keys = torch.full((self.ctas, self.spc), EMPTY, dtype=torch.int64)
+        self.keys = torch.full((self.ctas, self.spc), EMPTY, dtype=key_dtype)
         self.counts = torch.zeros((self.ctas, self.spc), dtype=torch.int64)
 
     def _at(self, s):
@@ -211,23 +216,23 @@ class _Table:
 
 def _emulate(src, dst, et, count, valid, star_min=STAR_MIN, hot_min=HOT_MIN):
     """The CUDA design on numpy inputs: (fan_out, fan_in, flags, psig)."""
-    src, dst = torch.from_numpy(src.view(np.int64)), torch.from_numpy(dst.view(np.int64))
+    src, dst = torch.from_numpy(signed_view(src)), torch.from_numpy(signed_view(dst))
     et, count, valid = torch.from_numpy(et), torch.from_numpy(count), torch.from_numpy(valid)
     n = src.shape[0]
     fans = []
     for ids, tag in ((src, PM.TAG_STAR_OUT), (dst, PM.TAG_STAR_IN)):
         key = torch.where(valid, PM._tag(ids, et, tag), torch.full_like(ids, EMPTY))
-        table = _Table(n)
+        table = _Table(n, key.dtype)
         table.insert(key)
         slot = table.find(key)
         fan = torch.where(valid, table.counts[table._at(slot.clamp(min=0))],
                           torch.zeros_like(slot))
         # past the end: no invalid lane, so the largest key is a real one
         if n >= 2 and bool(valid.all()):
-            top = (key ^ (-(1 << 63))).max() ^ (-(1 << 63))
+            top = flip_sign(flip_sign(key).max())
             fan = fan + (key == top).long()
         fans.append(fan.to(torch.int32))
-    tails = _Table(n)
+    tails = _Table(n, src.dtype)
     tails.insert(torch.where(valid, src, torch.full_like(src, EMPTY)))
     any_flag = bool((~valid).any() or (valid & (src == EMPTY)).any())
     member = torch.where(dst == EMPTY, torch.full_like(valid, any_flag), tails.find(dst) >= 0)
@@ -242,10 +247,21 @@ def _emulate(src, dst, et, count, valid, star_min=STAR_MIN, hot_min=HOT_MIN):
     psig = torch.where(chain, PM._tag(dst, et, PM.TAG_CHAIN), psig)
     psig = torch.where(stari, PM._tag(dst, et, PM.TAG_STAR_IN), psig)
     psig = torch.where(staro, PM._tag(src, et, PM.TAG_STAR_OUT), psig)
-    return [fan_out.numpy(), fan_in.numpy(), flags.numpy(), psig.numpy().view(np.uint64)]
+    return [fan_out.numpy(), fan_in.numpy(), flags.numpy(), unsigned_view(psig.numpy())]
 
 
 def _kind_batch(rng, n, kind):
+    if kind == "keys32":  # uint32 ids: 0, 2^32 - 1 and a hub among them, one invalid lane
+        ids = np.unique(rng.integers(1, 2**32 - 1, size=n, dtype=np.uint64)).astype(np.uint32)
+        ids[:2] = [0, 2**32 - 1]
+        src, dst = ids[rng.integers(0, ids.size, n)], ids[rng.integers(0, ids.size, n)]
+        et = rng.integers(0, 3, n).astype(np.int32)
+        src[: n // 8], et[: n // 8] = ids[2], 1
+        dst[n // 8: n // 4] = src[n // 4: 3 * n // 8]
+        count = rng.integers(1, 4, n).astype(np.int32)
+        valid = np.ones(n, dtype=bool)
+        valid[rng.integers(0, n)] = False
+        return src, dst, et, count, valid
     if kind == "random":
         return _random_batch(rng, n, narrow=False)
     if kind == "patterned":
@@ -287,10 +303,12 @@ def test_hash_design_matches_both_plain_versions(n, kind):
     _assert_same(got, _jax_ref(*batch), "reference's plain version")
 
 
-@pytest.mark.parametrize("kind", ("random", "hub", "extremes", "extremes_all_valid"))
-@pytest.mark.parametrize("n", [1, 2, 64, 1_024])
+@pytest.mark.parametrize("n,kind", [
+    (n, kind) for kind in ("random", "hub", "extremes", "extremes_all_valid")
+    for n in (1, 2, 64, 1_024)] + [(64, "keys32")])
 def test_hash_design_matches_pallas_kernel(n, kind):
-    batch = _kind_batch(np.random.default_rng(2_000 + n + KINDS.index(kind)), n, kind)
+    seed = 2_000 + n + (KINDS.index(kind) if kind in KINDS else len(KINDS))
+    batch = _kind_batch(np.random.default_rng(seed), n, kind)
     _assert_same(_emulate(*batch), _jax_ref(*batch, fn=RM.pattern_mine, interpret=True),
                  "reference's Pallas kernel")
 

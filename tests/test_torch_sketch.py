@@ -259,8 +259,10 @@ def test_absorb_wrapper_checks_its_operands():
     z = lambda *s: torch.zeros(s, dtype=torch.int32)
     k = lambda m=n: torch.zeros(m, dtype=torch.int64)
     sk = (z(Dp, Wp, Wp), z(Dp, Wp), z(Dp, Wp))
-    with pytest.raises(TypeError):  # keys as int32 coordinates
-        ops.sketch_absorb(*sk, k().int(), k().int(), z(n))
+    with pytest.raises(TypeError):  # keys of two widths (int32 keys alone are 32-bit keys)
+        ops.sketch_absorb(*sk, k(), k().int(), z(n))
+    with pytest.raises(TypeError):  # keys of no key width
+        ops.sketch_absorb(*sk, k().short(), k().short(), z(n))
     with pytest.raises(TypeError):  # counts as int64
         ops.sketch_absorb(*sk, k(), k(), z(n).long())
     with pytest.raises(ValueError):  # src one lane longer than cnt

@@ -5,7 +5,9 @@
 oracle, on 64-bit keys made with numpy.  The keys straddle bit 63 and
 crowd onto a few probe slots, so hits, claims, contended claims (an
 unsigned scatter-max between keys with and without bit 63) and drops
-all occur.  Every output is compared bit for bit.
+all occur.  Every output is compared bit for bit.  One corner case of
+the kernel's emulated schedule runs 32-bit keys (int32 bits) against the
+reference's Pallas kernel at uint32.
 
 The CUDA kernel itself cannot run here; `chip_smoke.py` holds it
 against `fused_upsert_ref` on the card.
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from repro.kernels import upsert as ref
+from repro_torch.core.compression import flip_sign, signed_view, unsigned_view
 from repro_torch.kernels import build
 from repro_torch.kernels import upsert as port
 
@@ -24,40 +27,46 @@ CAP = 1024
 LANES = 256
 
 
-def _distinct_keys(rng, n):
-    """n distinct uint64 keys in [1, 2^64 - 2], about half with bit 63 set."""
-    keys = np.unique(rng.integers(1, 2**64 - 1, size=2 * n + 16, dtype=np.uint64))
+def _distinct_keys(rng, n, dtype=np.uint64):
+    """n distinct keys of `dtype` (uint64 or uint32) in [1, 2^bits - 2],
+    about half with the top bit set."""
+    top = np.iinfo(dtype).max
+    keys = np.unique(rng.integers(1, top, size=2 * n + 16, dtype=np.uint64)).astype(dtype)
     rng.shuffle(keys)
     return keys[:n]
 
 
+def _tensor(a):
+    """Unsigned keys as a torch tensor of the same bits (int64 or int32)."""
+    return torch.from_numpy(signed_view(a).copy())
+
+
 def _first_slot(keys, cap):
-    return port.probe_hash(torch.from_numpy(keys.view(np.int64)), cap, 0).numpy()
+    return port.probe_hash(_tensor(keys), cap, 0).numpy()
 
 
 def _ref_upsert(fn, table, keys, valid, probes, **kw):
-    with jax.enable_x64(True):
+    # 64-bit keys under x64, 32-bit keys without it, as the reference runs each
+    with jax.enable_x64(table.dtype == np.uint64):
         tk, slot, new = fn(jnp.asarray(table), jnp.asarray(keys), jnp.asarray(valid),
                            jnp.int32(probes), **kw)
         return np.asarray(tk), np.asarray(slot), np.asarray(new)
 
 
 def _port_upsert(fn, table, keys, valid, probes):
-    tk, slot, new = fn(torch.from_numpy(table.view(np.int64).copy()),
-                       torch.from_numpy(keys.view(np.int64).copy()),
-                       torch.from_numpy(valid.copy()), probes)
-    return tk.numpy().view(np.uint64), slot.numpy(), new.numpy()
+    tk, slot, new = fn(_tensor(table), _tensor(keys), torch.from_numpy(valid.copy()), probes)
+    return unsigned_view(tk.numpy()), slot.numpy(), new.numpy()
 
 
-def _case(seed, load, zero_key=False):
+def _case(seed, load, zero_key=False, dtype=np.uint64):
     """A table pre-filled to `load` and a batch of LANES unique keys:
     30% already present, the rest new, a quarter of those crowded onto
     eight first-probe slots, 10% of the lanes invalid."""
     rng = np.random.default_rng(seed)
-    pool = _distinct_keys(rng, 64 * CAP)
+    pool = _distinct_keys(rng, 64 * CAP, dtype)
     m = int(load * CAP)
     fill, rest = pool[:m], pool[m:]
-    table = np.zeros(CAP, np.uint64)
+    table = np.zeros(CAP, dtype)
     if m:
         table, fslot, _ = _ref_upsert(ref.fused_upsert_ref, table, fill,
                                       np.ones(m, bool), 1 << 12)
@@ -173,24 +182,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 # the barriers and every write of a lane's outputs.
 
 CLAIM, LANE = 0x8000, 0x7FFF
-SIGN = -(1 << 63)
 
 
 def _claim(table, slots, keys):
-    """Unsigned 64-bit atomicMax of `keys` into table[slots]."""
+    """Unsigned atomicMax of `keys` into table[slots], at the keys' width."""
     if not slots.numel():
         return
     uniq, inv = torch.unique(slots, return_inverse=True)
-    best = (table[uniq] ^ SIGN).scatter_reduce(0, inv, keys ^ SIGN, "amax", include_self=True)
-    table[uniq] = best ^ SIGN
+    best = flip_sign(table[uniq]).scatter_reduce(0, inv, flip_sign(keys), "amax",
+                                                 include_self=True)
+    table[uniq] = flip_sign(best)
 
 
 class _Cta:
-    def __init__(self, rank, cta_lanes, extra, n):
+    def __init__(self, rank, cta_lanes, extra, n, key_dtype):
         self.first = rank * cta_lanes
         self.lanes = max(0, min(cta_lanes, n - self.first))
         self.cta_lanes = cta_lanes
-        self.key = torch.zeros(cta_lanes + extra, dtype=torch.int64)  # keys held
+        self.key = torch.zeros(cta_lanes + extra, dtype=key_dtype)  # keys held
         self.taken = torch.zeros(extra, dtype=torch.int64)  # global lane of each taken over
         self.queue = torch.zeros(0, dtype=torch.int64)  # codes
 
@@ -223,7 +232,7 @@ def _emulate(table, keys, valid, probes, ctas, hand_over=port.HAND_OVER_LANES, s
     def shuffled(q):
         return q[torch.randperm(q.numel(), generator=gen)]
 
-    rank_ctas = [_Cta(r, cta_lanes, extra, n) for r in range(ctas)]
+    rank_ctas = [_Cta(r, cta_lanes, extra, n, keys.dtype) for r in range(ctas)]
     if int(probes) <= 0:
         finish(torch.arange(n), -1, False)
         return table, slot, is_new, 0, 0
@@ -299,12 +308,11 @@ def _emulate(table, keys, valid, probes, ctas, hand_over=port.HAND_OVER_LANES, s
 
 def _emulated(table, keys, valid, probes, ctas, **kw):
     tk, slot, new, rounds, barriers = _emulate(
-        torch.from_numpy(table.view(np.int64).copy()), torch.from_numpy(keys.view(np.int64).copy()),
-        torch.from_numpy(valid.copy()), probes, ctas, **kw)
+        _tensor(table), _tensor(keys), torch.from_numpy(valid.copy()), probes, ctas, **kw)
     # two barriers a round, one to clear the counts, and at most one to
     # end the loop and one to hand the lanes over
     assert barriers <= 2 * rounds + 3
-    return tk.numpy().view(np.uint64), slot.numpy(), new.numpy()
+    return unsigned_view(tk.numpy()), slot.numpy(), new.numpy()
 
 
 _REFS = {}
@@ -367,12 +375,15 @@ def _special(kind):
         return table, keys, np.zeros_like(valid), 32
     if kind in ("budget0", "budget1"):
         return table, keys, valid, int(kind[-1])
+    if kind == "keys32":  # 32-bit keys, key 0 among them, contended claims
+        table, keys, valid = _case(23, 0.5, zero_key=True, dtype=np.uint32)
+        return table, keys, valid, 64
     assert kind == "no_lanes"
     return table, keys[:0], valid[:0], 32
 
 
 SPECIALS = ["cap7", "zero_and_duplicates", "zero_loses_claim", "dropped", "all_invalid",
-            "budget0", "budget1", "no_lanes"]
+            "budget0", "budget1", "no_lanes", "keys32"]
 
 
 @pytest.mark.parametrize("ctas", WIDTHS)
@@ -393,6 +404,8 @@ def test_schedule_corner_cases_match_pallas_and_plain(kind, ctas):
         assert pallas[1][0] == 0 and not pallas[2][0] and pallas[0][0] != 0
     if kind == "dropped":
         assert (pallas[1][valid] < 0).any()
+    if kind == "keys32":
+        assert pallas[0].dtype == np.uint32 and pallas[2].any() and (pallas[1] >= 0).any()
 
 
 @pytest.mark.parametrize("ctas", [1, 4, 8, 16])
