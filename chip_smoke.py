@@ -179,7 +179,25 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      1's node sweep, on a table at load 0.7 (budget 64) and at 512 lanes,
      and K5's at 512 and 8,192 lanes (every kind of phase 12's batches,
      ids cut to 32 bits) and on the path's largest mined batch; times
-     both beside the 64-bit instances on the same keys zero-extended.
+     both beside the 64-bit instances on the same keys zero-extended;
+ 29. drives the lineage CLI, `launch.lineage --outage 30:42`, at its
+     defaults (`flash_crowd`, 240 ticks, seed 0, speed 0.5, a 2^20-node,
+     2^21-edge store; the default RetryPolicy) with its trace, JSONL and
+     Prometheus files, counters set to 0 just before and read just
+     after: requires exit 0, a final queryable watermark, balanced
+     conservation, the `archived` path with a complete flow chain for
+     every path, a slower archived queryable p99 than direct's, one
+     queryable watermark on every timeline row inside the outage, the
+     archive drained and a `freshness` burn-alert onset before the
+     outage's records are queryable, K1 two launches a stored commit
+     (replays included) and K4 one a tick with records; runs the same
+     deployment on the host on the card's records, its controller
+     deciding for itself (the card's decisions replayed only if one
+     differs), and requires the same tracker state (hop wall clock
+     masked), timeline, freshness table, path mix, conservation,
+     lineage gauges, hop logs, freshness SLO and ingestor accounting;
+     prints the tracker's host ms a tick and the exporters' ms once.
+The profiled phases (3, 7, 11, 17 and 26) record device activity only.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
 JSON line.  It exits non-zero without a CUDA device or without the port
@@ -613,13 +631,16 @@ def _profiled(torch, label, reg, drive, ticks=MAIN_TICKS):
     """Run `drive()` with span telemetry `reg` on and under
     torch.profiler; print the host span totals per stage, and the
     device's busy time (kernels and copies) against the wall time.
-    Returns the device events as (name, ms, count), largest first."""
+    Returns the device events as (name, ms, count), largest first.
+    The profiler records device activity only: nothing here reads its
+    host events (the spans time the host), and recording them made the
+    profiler's own processing most of a profiled phase."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import build
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         drive()
         torch.cuda.synchronize()
@@ -2320,6 +2341,222 @@ def keys32_path(torch):
     return by_width, upsert_rows, mine_rows
 
 
+# Phase 29: launch.lineage at its defaults (flash_crowd, 240 ticks, seed 0,
+# speed 0.5, a 2^20-node, 2^21-edge store) with a 12-tick store outage at
+# the burst's onset (tick 30, phase 27's burst_onset_tick)
+LINEAGE_OUTAGE = (30.0, 42.0)
+LINEAGE_ARGV = ["--outage", "30:42"]
+# the tracker's calls on the path, timed by _host_seconds
+LINEAGE_CALLS = ("observe_intake", "open_batch", "stage_commit", "after_commit", "mark_pooled",
+                 "mark_archived", "mark_replay", "mark_committed", "mark_queryable",
+                 "mark_dropped", "on_event")
+
+
+def _lineage_run(device, tmp, stream, decisions=None):
+    """`launch.lineage.run` at phase 29's deployment on `device`, writing
+    its trace, JSONL and Prometheus files into `tmp`.  Records the ticks
+    into `stream` when it is empty, replays them when it holds some; with
+    `decisions`, the controller replays those (action, beta) in place of
+    its own.  Returns the CLI's (exit code, report, tracker, monitor),
+    the pipeline, the decisions taken as (action, beta), the "retry"
+    events as (t, remaining) and the printout."""
+    import io
+
+    from repro_torch.ingest.sources import StreamTick
+    from repro_torch.launch import lineage as cli
+    from repro_torch.workloads import harness
+
+    taken, retries, built = [], [], {}
+
+    class Recording(harness.ScenarioSource):
+        def ticks(self):
+            for tick in super().ticks():
+                stream.append((tick.t, copy.deepcopy(tick.records)))
+                yield tick
+
+    class Replaying:
+        def __init__(self, *args, **kw):
+            self.dt = 1.0
+
+        def ticks(self):
+            for t, records in stream:
+                yield StreamTick(t, copy.deepcopy(records))
+
+    class Builder(harness.PipelineBuilder):
+        def build(self):
+            if decisions is not None:
+                self.with_controller(_replaying(self.cfg, decisions, self.device))
+            self.on_event(lambda ev: ev.kind == "retry"
+                          and retries.append((ev.t, ev.payload["remaining"])))
+            pipe = built["pipe"] = super().build()
+            pipe.controller.on_decision = lambda d: taken.append((d.action, d.beta))
+            return pipe
+
+    saved = harness.ScenarioSource, harness.PipelineBuilder
+    harness.ScenarioSource = Replaying if stream else Recording
+    harness.PipelineBuilder = Builder
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = cli.run(LINEAGE_ARGV + [
+                "--device", device, "--trace-out", f"{tmp}/{device}.json",
+                "--jsonl-out", f"{tmp}/{device}.jsonl", "--prom-out", f"{tmp}/{device}.prom"])
+    finally:
+        harness.ScenarioSource, harness.PipelineBuilder = saved
+    return result, built["pipe"], taken, retries, out.getvalue()
+
+
+def _lineage_digest(device, tmp, result, pipe):
+    """What the card's lineage run must share with the host's: the
+    tracker's state and hop logs without the hops' host clock (it only
+    places flow events on the span timeline), the timeline, the
+    printed views, the conservation counts and gauges, the freshness
+    SLO, and the ingestor's accounting."""
+    from repro_torch import lineage as L
+
+    code, rep, trk, mon = result
+
+    def tag(t):
+        d = {k: v for k, v in vars(t).items() if k != "hops"}
+        return {**d, "hops": [(h, at) for h, at, _ in t.hops]}
+
+    state = trk.state()
+    state = {**state, "completed": [tag(t) for t in state["completed"]],
+             "open_tags": {k: tag(t) for k, t in state["open_tags"].items()}}
+    with open(f"{tmp}/{device}.jsonl") as f:
+        hops = [json.loads(line) for line in f]
+    for line in hops:
+        line.pop("exporter", None)
+        for h in line.get("hops", ()):
+            h.pop("wall_ns")
+    ing = pipe.sink.ingestor
+    return {
+        "state": state, "timeline": list(trk.timeline),
+        "freshness_table": L.freshness_table(trk),
+        "watermark_timeline": L.watermark_timeline(trk), "path_mix": rep.path_mix,
+        "conservation": trk.conservation(), "prometheus_lines": L.prometheus_lines(trk),
+        "jsonl": hops, "freshness_slo": rep.slo_summary["freshness"],
+        "ingestor": {"attempts": ing.attempts, "archived_total": ing.archived_total,
+                     "replayed": ing.replayed}}
+
+
+def lineage_path(torch, smi):
+    """Phase 29: batch lineage on the card through `launch.lineage`."""
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.lineage import LineageTracker, validate_flow_events
+    from repro_torch.lineage import export as LX
+
+    lo, hi = LINEAGE_OUTAGE
+    stream = []
+    with tempfile.TemporaryDirectory() as tmp:
+        build.launches.clear()
+        t0 = time.perf_counter()
+        with _host_seconds(collections.Counter(), [(LineageTracker, name)
+                                                   for name in LINEAGE_CALLS]) as spent:
+            card = _lineage_run("cuda", tmp, stream)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(build.launches)
+        (code, rep, trk, mon), pipe, decisions, retries, printed = card
+        ing = pipe.sink.ingestor
+        stored = sum(c.ok for c in ing.commits)
+        k4_ticks = sum(1 for _, records in stream if records)
+        fresh = trk.freshness()
+        wm = trk.watermarks()
+        held = {r["queryable"] for r in trk.timeline if lo < r["t"] <= hi}
+        drained = next((t for t, left in retries if t >= hi and left == 0), None)
+        # the outage's backlog lasts until its records are queryable: the
+        # first timeline row past the outage whose queryable watermark
+        # reached its end (the run's end if none did)
+        caught_up = next((r["t"] for r in trk.timeline
+                          if r["t"] > hi and r["queryable"] >= hi), float(rep.ticks))
+        slo = rep.slo_summary["freshness"]
+        onsets = [a["t"] for a in slo["alerts"] if a["phase"] == "onset"]
+        flows_ok, flows = validate_flow_events(f"{tmp}/cuda.json",
+                                               require_paths=sorted(rep.path_mix))
+        checks = {
+            "exit 0": code == 0,
+            "queryable watermark": wm["queryable"] is not None,
+            "conservation": not rep.conservation_warning
+            and rep.records_in == rep.records_committed + rep.records_dropped
+            + rep.records_in_flight,
+            "archived path": rep.path_mix.get("archived", 0) > 0,
+            "flow chains": flows_ok,
+            "archived slower": "archived" in fresh and "direct" in fresh
+            and fresh["archived"]["queryable"]["p99_ms"]
+            > fresh["direct"]["queryable"]["p99_ms"],
+            "watermark held through the outage": len(held) == 1,
+            "archive drained": drained is not None,
+            "freshness alert in the backlog": any(lo <= t <= caught_up for t in onsets),
+            "K1 two a stored commit": launches.get("fused_upsert", 0) == 2 * stored > 0,
+            "K4 one a tick with records": launches.get("traffic_ids", 0) == k4_ticks > 0,
+            "no batch lost": ing.archived_total == ing.replayed + ing.archive_depth,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"lineage path: {checks}; flows: {flows}; retries "
+                                 f"{retries[:8]}; onsets {onsets}; path_mix {rep.path_mix}\n"
+                                 + printed)
+        # the exporters once, after the run
+        t0 = time.perf_counter()
+        LX.sample_tags(trk)
+        LX.flow_events(trk, 0)
+        LX.write_lineage_jsonl(trk, f"{tmp}/again.jsonl")
+        LX.freshness_table(trk)
+        LX.watermark_timeline(trk)
+        LX.prometheus_lines(trk)
+        export_s = time.perf_counter() - t0
+
+        # the same deployment on the host, on the card's records, its
+        # controller deciding for itself; the card's decisions replayed
+        # only where one differs
+        host = _lineage_run("cpu", tmp, stream)
+        replayed = host[2] != decisions
+        if replayed:
+            host = _lineage_run("cpu", tmp, stream, decisions)
+        want = _lineage_digest("cuda", tmp, card[0], pipe)
+        got = _lineage_digest("cpu", tmp, host[0], host[1])
+        differ = sorted(k for k in want if want[k] != got[k])
+        if differ or host[2] != decisions:
+            raise AssertionError(f"lineage path: card and host differ in {differ} "
+                                 f"(decisions replayed: {replayed})")
+    ticks = rep.ticks
+    tracker_ms = {name: spent[name] * 1e3 / ticks for name in LINEAGE_CALLS if spent[name]}
+    print("lineage path: " + json.dumps({
+        "card": smi, "ticks": ticks, "records": rep.total_records, "wall_s": wall_s,
+        "wall_ms_per_tick": wall_s * 1e3 / ticks, "outage": LINEAGE_OUTAGE,
+        "path_mix": rep.path_mix, "watermarks": wm,
+        "conservation": {k: getattr(rep, k) for k in ("records_in", "records_committed",
+                                                      "records_dropped", "records_in_flight")},
+        "ingest_lag_ms_p50": rep.ingest_lag_ms_p50, "ingest_lag_ms_p99": rep.ingest_lag_ms_p99,
+        "queryable_lag_ms_p99": rep.queryable_lag_ms_p99,
+        "queryable_p99_ms_by_path": {p: r["queryable"]["p99_ms"] for p, r in fresh.items()},
+        "held_queryable_watermark": sorted(held), "archive_drained_at": drained,
+        "outage_records_queryable_at": caught_up,
+        "freshness_slo": {k: slo[k] for k in ("objective", "ticks", "breaches",
+                                              "budget_consumed", "first_alert_tick")},
+        "freshness_onsets": onsets, "flows": flows,
+        "commits_stored": stored, "commit_failures": rep.commit_failures,
+        "archived_total": ing.archived_total, "replayed": ing.replayed,
+        "attempts": ing.attempts, "degraded_events": rep.degraded_events,
+        "tracker_host_ms_per_tick": sum(tracker_ms.values()),
+        "tracker_host_ms_per_tick_by_call": tracker_ms,
+        "exporters_once_ms": export_s * 1e3,
+        "host_decided_alike": not replayed,
+        "launches": {k: launches.get(k, 0) for k in ("fused_upsert", "traffic_ids")}}),
+        flush=True)
+    print(f"lineage path on {smi}: K1 {launches.get('fused_upsert', 0)} launches for "
+          f"{stored} stored commits (replays included), K4 {launches.get('traffic_ids', 0)} "
+          f"for {k4_ticks} ticks with records; the tracker's host cost "
+          f"{sum(tracker_ms.values())} ms a tick, the exporters {export_s * 1e3} ms once; "
+          f"the host, on the card's records"
+          + (" and decisions" if replayed else ", deciding for itself,")
+          + " gives the same tracker state, timeline, views, gauges, hop logs, "
+          "freshness SLO and ingestor accounting", flush=True)
+    return launches
+
+
 def _flash_tol(dtype, S, torch):
     """K7's (atol, rtol) against its plain version: the reference test's
     2e-6 in float32 up to S = 1,024 (its largest S is 512); beyond, 2e-6
@@ -2790,6 +3027,7 @@ def main():
     phase(26, sharded_workload_breakdown, torch)
     phase(27, monitored_workload, torch, smi)
     k32_by_width, k32_upsert, k32_mine = phase(28, keys32_path, torch)
+    phase(29, lineage_path, torch, smi)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["lanes"] == NODE_SWEEP[2]

@@ -2,7 +2,8 @@
 Counterpart of `repro.api.builder` (the core methods, extra record
 stages, the query path: the sketch stage, the query sink and
 sketch-guided control, GraphZip dictionary compression, sharding, span
-telemetry with the controller audit trail, and the health monitor).
+telemetry with the controller audit trail, the health monitor, batch
+lineage with its watermarks, and fault injection with commit retry).
 
     pipe = (PipelineBuilder(IngestConfig(cpu_max=0.55), device="cuda")
             .with_source(BurstyTweetSource(seed=0))
@@ -36,8 +37,10 @@ from repro_torch.core.buffer import BufferController
 from repro_torch.core.compression import check_key_dtype
 from repro_torch.core.transform import MappingSpec
 from repro_torch.device import resolve
+from repro_torch.lineage import LineageTracker
 from repro_torch.monitor import HealthMonitor
 from repro_torch.query.stage import QuerySink, SketchStage
+from repro_torch.resilience import FaultInjector, FaultPlan, RetryPolicy
 from repro_torch.telemetry import AuditTrail, TelemetryRegistry
 
 # placeholders in the stage list for stages constructed at build time
@@ -77,6 +80,11 @@ class PipelineBuilder:
         self._telemetry: Optional[TelemetryRegistry] = None
         self._monitor = None
         self._monitor_kw = None
+        self._lineage: Optional[LineageTracker] = None
+        self._lineage_kw = None
+        self._fault_plan = None
+        self._fault_injector: Optional[FaultInjector] = None
+        self._retry = None
 
     # ---- parts ----
     def with_source(self, source) -> "PipelineBuilder":
@@ -242,8 +250,59 @@ class PipelineBuilder:
         """The `HealthMonitor` wired by `with_monitor` (after build())."""
         return self._monitor
 
+    def with_lineage(self, tracker: Optional[LineageTracker] = None,
+                     **kw) -> "PipelineBuilder":
+        """Batch provenance + event-time watermarks: tag every batch at
+        the buffer with a monotone id and its event-time envelope,
+        follow it through spill, pool and archive to the queryable
+        snapshot, and keep the committed/queryable watermark pair with
+        per-path freshness histograms.  Pass a configured
+        `repro_torch.lineage.LineageTracker`, or keyword args for one
+        (sample_rate, dt, buffered_slack, ...); read it back via
+        `.lineage_tracker` (also `pipe.lineage` / `hub.lineage` after
+        build)."""
+        self._lineage = tracker if tracker is not None and tracker is not True else None
+        self._lineage_kw = dict(kw)
+        return self
+
+    @property
+    def lineage_tracker(self) -> Optional[LineageTracker]:
+        """The `LineageTracker` wired by `with_lineage` (after build())."""
+        return self._lineage
+
     def on_event(self, hook: Callable[[PipelineEvent], None]) -> "PipelineBuilder":
         self._hooks.append(hook)
+        return self
+
+    # ---- resilience ----
+    def with_faults(self, plan) -> "PipelineBuilder":
+        """Counter-deterministic fault injection: wire a
+        `repro_torch.resilience.FaultPlan` (or a ready `FaultInjector`)
+        as the sink ingestor's `fail_hook` at build time.  Read the
+        injector back via `.fault_injector`."""
+        self._fault_plan = plan
+        return self
+
+    @property
+    def fault_injector(self) -> Optional[FaultInjector]:
+        """The `FaultInjector` wired by `with_faults` (after build())."""
+        return self._fault_injector
+
+    def with_retry(self, policy: Optional[RetryPolicy] = None, *,
+                   max_archive: Optional[int] = None, pool_cap: Optional[int] = None,
+                   archive_dir: Optional[str] = None,
+                   degrade_after: Optional[int] = None) -> "PipelineBuilder":
+        """Backoff-governed commit retry: attach a `RetryPolicy` (the
+        default one when none is given) to the sink's ingestor at build
+        time.  This arms the per-tick archive replay in the loop, the
+        exponential-backoff gate, the degraded push mode, and, through
+        the keyword overrides, the bounded archive (`max_archive`
+        batches in memory, spilled to `archive_dir` beyond) and the
+        pool's hard cap."""
+        self._retry = (policy if policy is not None else RetryPolicy(), {
+            "max_archive": max_archive, "pool_cap": pool_cap,
+            "archive_dir": archive_dir, "degrade_after": degrade_after,
+        })
         return self
 
     # ---- assembly ----
@@ -307,6 +366,22 @@ class PipelineBuilder:
             ingestor = getattr(sink, "ingestor", None)
             if ingestor is not None and hasattr(ingestor, "commit_hooks"):
                 ingestor.commit_hooks.append(self._dict_stage.observe_commit)
+        if self._fault_plan is not None or self._retry is not None:
+            ingestor = getattr(sink, "ingestor", None)
+            if ingestor is None:
+                raise ValueError("with_faults()/with_retry() need a sink "
+                                 "with a GraphIngestor underneath")
+            if self._fault_plan is not None:
+                self._fault_injector = (FaultInjector(self._fault_plan)
+                                        if isinstance(self._fault_plan, FaultPlan)
+                                        else self._fault_plan)
+                ingestor.fail_hook = self._fault_injector
+            if self._retry is not None:
+                policy, overrides = self._retry
+                ingestor.retry_policy = policy
+                for name, val in overrides.items():
+                    if val is not None:
+                        setattr(ingestor, name, val)
         if self._n_shards > 1:
             if self._uncontrolled:
                 raise ValueError("sharded pipelines are always controlled")
@@ -361,6 +436,28 @@ class PipelineBuilder:
             self._monitor.bind(metrics, cfg=self.cfg)
             metrics.monitor = self._monitor
             pipe.monitor = self._monitor
+        if self._lineage is not None or self._lineage_kw is not None:
+            if self._lineage is None:
+                self._lineage = LineageTracker(**(self._lineage_kw or {}))
+            tracker = self._lineage
+            metrics.lineage = tracker
+            pipe.lineage = tracker
+            # intake observation at every buffer stage, tag custody at
+            # the ingestor, and the per-shard hubs `controlled_tick`
+            # actually receives
+            if isinstance(pipe, ShardedPipeline):
+                for b in pipe.shards:
+                    b.lineage = tracker
+                for h in pipe._hubs:
+                    h.lineage = tracker
+            else:
+                pipe.buffer_stage.lineage = tracker
+            ingestor = getattr(sink, "ingestor", None)
+            if ingestor is not None and hasattr(ingestor, "lineage"):
+                ingestor.lineage = tracker
+            # bind AFTER the monitor, so that the per-tick "watermark"
+            # event lands in the tick row the monitor just opened
+            tracker.bind(metrics)
         return pipe
 
     def _wire_telemetry(self, pipe, transform, sink, controllers):

@@ -63,6 +63,10 @@ class MetricsHub:
         # wired (PipelineBuilder.with_monitor); it subscribes like any
         # other hook, and this reference lets exporters find it
         self.monitor = None
+        # the attached repro_torch.lineage.LineageTracker, when one is
+        # wired (PipelineBuilder.with_lineage): `controlled_tick` looks
+        # it up here to tag batches; None keeps the hot path branch-only
+        self.lineage = None
 
     @property
     def counters(self) -> collections.Counter:

@@ -75,6 +75,7 @@ def controlled_tick(buf: BufferControlStage, transform, sink, consumer,
     tel = hub.telemetry
     pm = buf.perfmon
     aud = buf.controller.audit
+    lineage = getattr(hub, "lineage", None)
     with tel.span("decide"):
         dec = buf.decide(len(buf) * 4.0, 0.0, now=now)
 
@@ -85,8 +86,16 @@ def controlled_tick(buf: BufferControlStage, transform, sink, consumer,
             hub.emit("drain", now, depth=buf.spill_depth)
         batch = buf.take_batch()
         if batch:
+            tag = handed = None
+            if lineage is not None:
+                tag = lineage.open_batch(batch, now, shard=getattr(tel, "shard", None),
+                                         spilled=buf.last_take_spilled)
             et, n_instr, raw_i = transform.encode(batch)
+            if tag is not None:
+                handed = lineage.stage_commit(tag, sink)
             out = sink.commit(et, now=now)
+            if tag is not None:
+                lineage.after_commit(tag, out, now, handed=handed)
             with tel.span("consume"):
                 mu = consumer.consume(n_instr, cdt, now=now)
             committed = out.get("committed", False)
@@ -204,8 +213,16 @@ class StreamPipeline:
         buf, pm, hub = self.buffer_stage, self.buffer_stage.perfmon, self.metrics
         if len(buf):
             batch = buf.take_all()
+            lineage = getattr(hub, "lineage", None)
+            tag = handed = None
+            if lineage is not None:
+                tag = lineage.open_batch(batch, now, spilled=buf.last_take_spilled)
             et, n_instr, raw_i = self.transform.encode(batch)
+            if tag is not None:
+                handed = lineage.stage_commit(tag, self.sink)
             out = self.sink.commit(et, now=now)
+            if tag is not None:
+                lineage.after_commit(tag, out, now, handed=handed)
             mu = self.consumer.consume(n_instr, dt, now=now)
             rho = out.get("rho", 1.0) if out.get("committed", False) else 1.0
             cr, density, size = table_metrics(et)
@@ -274,6 +291,9 @@ class StreamPipeline:
             s["consumer"] = self.consumer.state()
         if hasattr(self.sink, "state"):
             s["sink"] = self.sink.state()
+        tracker = getattr(self.metrics, "lineage", None)
+        if tracker is not None:
+            s["lineage"] = tracker.state()
         return s
 
     def restore_state(self, s: dict) -> None:
@@ -287,3 +307,6 @@ class StreamPipeline:
             self.consumer.restore_state(s["consumer"])
         if "sink" in s and hasattr(self.sink, "restore_state"):
             self.sink.restore_state(s["sink"])
+        tracker = getattr(self.metrics, "lineage", None)
+        if tracker is not None and "lineage" in s:
+            tracker.restore_state(s["lineage"])

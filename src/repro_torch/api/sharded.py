@@ -197,6 +197,9 @@ class ShardedPipeline:
             s["consumer"] = self.consumer.state()
         if hasattr(self.sink, "state"):
             s["sink"] = self.sink.state()
+        tracker = getattr(self.metrics, "lineage", None)
+        if tracker is not None:
+            s["lineage"] = tracker.state()
         return s
 
     def restore_state(self, s: dict) -> None:
@@ -213,3 +216,6 @@ class ShardedPipeline:
             self.consumer.restore_state(s["consumer"])
         if "sink" in s and hasattr(self.sink, "restore_state"):
             self.sink.restore_state(s["sink"])
+        tracker = getattr(self.metrics, "lineage", None)
+        if tracker is not None and "lineage" in s:
+            tracker.restore_state(s["lineage"])

@@ -92,19 +92,34 @@ class BufferControlStage:
             cfg or IngestConfig(), spill_dir=spill_dir, device=device)
         self.buffer: List[dict] = []
         self.max_buffered = 0  # high-water mark
+        # provenance (repro_torch.lineage): per-record came-back-from-spill
+        # flags parallel to `buffer`, the count of records currently
+        # detoured to disk, and whether the last take touched spill
+        self._spill_flags: List[bool] = []
+        self.spilled_records = 0
+        self.last_take_spilled = False
+        self.lineage = None  # LineageTracker (set by builder wiring)
 
     def extend(self, records: List[dict]):
+        if self.lineage is not None:
+            self.lineage.observe_intake(records)
         self.buffer.extend(records)
+        self._spill_flags.extend([False] * len(records))
         self.max_buffered = max(self.max_buffered, len(self.buffer))
 
     def take_batch(self) -> List[dict]:
         """Pop up to beta records (the controller's current bucket)."""
         batch = self.buffer[: self.controller.beta]
         self.buffer = self.buffer[self.controller.beta:]
+        taken = self._spill_flags[: len(batch)]
+        self._spill_flags = self._spill_flags[len(batch):]
+        self.last_take_spilled = any(taken)
         return batch
 
     def take_all(self) -> List[dict]:
         batch, self.buffer = self.buffer, []
+        self.last_take_spilled = any(self._spill_flags)
+        self._spill_flags = []
         return batch
 
     def spill_all(self) -> int:
@@ -113,11 +128,17 @@ class BufferControlStage:
         if self.buffer:
             self.controller.spill.flush(self.buffer)
             self.buffer = []
+            self._spill_flags = []
+            self.spilled_records += n
         return n
 
     def drain_spill(self):
-        """Step 6: reload spilled data into the buffer."""
-        self.buffer.extend(self.controller.spill.drain())
+        """Step 6: reload spilled data into the buffer (their intake
+        was observed when they first entered it)."""
+        drained = self.controller.spill.drain()
+        self.spilled_records = max(0, self.spilled_records - len(drained))
+        self.buffer.extend(drained)
+        self._spill_flags.extend([True] * len(drained))
         self.max_buffered = max(self.max_buffered, len(self.buffer))
 
     def state(self) -> dict:
@@ -125,12 +146,17 @@ class BufferControlStage:
             "buffer": list(self.buffer),
             "max_buffered": self.max_buffered,
             "controller": self.controller.state(),
+            "spill_flags": list(self._spill_flags),
+            "spilled_records": self.spilled_records,
         }
 
     def restore_state(self, s: dict) -> None:
         self.buffer = list(s["buffer"])
         self.max_buffered = int(s["max_buffered"])
         self.controller.restore_state(s["controller"])
+        # .get: states saved without lineage's keys
+        self._spill_flags = list(s.get("spill_flags", [False] * len(self.buffer)))
+        self.spilled_records = int(s.get("spilled_records", 0))
 
     def decide(self, size_est: float, density: float,
                now: Optional[float] = None) -> ControllerDecision:

@@ -15,10 +15,15 @@ the device's work.
     FIFO as retries drain them;
   * the pool has a hard cap (`pool_cap`, default 4x `max_pool_size`):
     overflow batches divert to the archive, counted in `pool_overflows`;
-  * with a retry policy attached (any object with `delay(k)`),
-    consecutive commit failures arm a capped-exponential-backoff gate
-    (`next_retry_t`), and after `degrade_after` consecutive failures
-    `push` archives directly (DEGRADED mode).
+  * with a retry policy attached (any object with `delay(k)`, such as
+    `repro_torch.resilience.RetryPolicy`), consecutive commit failures
+    arm a capped-exponential-backoff gate (`next_retry_t`), and after
+    `degrade_after` consecutive failures `push` archives directly
+    (DEGRADED mode);
+  * with a `repro_torch.lineage.LineageTracker` attached (`lineage`),
+    each batch's tag rides beside it through the pool and the archive,
+    and the tracker hears of every pool, archive, replay, commit and
+    queryable hop.  No tag goes into a spill file.
 """
 from __future__ import annotations
 
@@ -123,6 +128,16 @@ class GraphIngestor:
         self.replayed = 0
         self.attempts = 0
         self.pool_overflows = 0
+        # provenance (None tracker = nothing done): `_lineage_next` is the
+        # tag the pipeline staged for the very next push;
+        # `_pool_tags`/`_archive_tags` ride parallel to the pool and the
+        # LOGICAL archive (memory + disk spill, FIFO), so the spill
+        # files keep the reference's layout.  Every tag op is guarded on
+        # the tracker and on deque depth.
+        self.lineage = None
+        self._lineage_next = None
+        self._pool_tags: Deque = collections.deque()
+        self._archive_tags: Deque = collections.deque()
 
     # ---- archive (bounded, disk-spilled past max_archive) -----------
     @property
@@ -145,7 +160,12 @@ class GraphIngestor:
         self._archive_n += 1
         return fn
 
-    def _archive_put(self, et) -> None:
+    def _archive_put(self, et, tag=None, now: Optional[float] = None,
+                     degraded: bool = False) -> None:
+        if self.lineage is not None and tag is not None:
+            self._archive_tags.append(tag)
+            self.lineage.mark_archived(tag, now if now is not None else time.time(),
+                                       degraded=degraded)
         self.archived_total += 1
         # keep FIFO across the memory/disk boundary: once anything
         # spilled, later batches must spill too or replay reorders
@@ -169,27 +189,35 @@ class GraphIngestor:
     # ------------------------------------------------------------------
     def push(self, et: EdgeTable, now: Optional[float] = None) -> dict:
         """GRAPHPUSH: pool admission + commit.  Returns commit stats."""
+        tag, self._lineage_next = self._lineage_next, None
         wall = now if now is not None else time.time()
         if self.retry_policy is not None and self.degraded:
             if wall < self.next_retry_t:
                 # degraded mode: the store is down and the backoff gate
                 # is closed — preserve the batch without a doomed probe
-                self._archive_put(et)
+                self._archive_put(et, tag, now=wall, degraded=True)
                 return {"committed": False, "archived": self.archive_depth,
                         "degraded": True}
         if len(self.pool) >= self.max_pool_size:
             if len(self.pool) >= self.pool_cap:
                 self.pool_overflows += 1
-                self._archive_put(et)
+                self._archive_put(et, tag, now=wall)
                 return {"committed": False, "pooled": len(self.pool),
                         "pool_overflow": self.pool_overflows}
             # pool full: hold in local memory until timeout (paper §III-B)
             self.pool.append(et)
+            if self.lineage is not None and tag is not None:
+                self._pool_tags.append(tag)
+                self.lineage.mark_pooled(tag, wall)
             return {"committed": False, "pooled": len(self.pool)}
         self.pool.append(et)
+        if self.lineage is not None and tag is not None:
+            self._pool_tags.append(tag)
         stats = {}
         while self.pool:
-            stats = self._commit(self.pool.popleft(), now)
+            batch = self.pool.popleft()
+            btag = self._pool_tags.popleft() if self._pool_tags else None
+            stats = self._commit(batch, now, tag=btag)
             if not stats["committed"]:
                 break
         return stats
@@ -199,7 +227,7 @@ class GraphIngestor:
             torch.cuda.synchronize(self.store.device)
 
     def _commit(self, et: EdgeTable, now: Optional[float],
-                archive_on_fail: bool = True) -> dict:
+                archive_on_fail: bool = True, tag=None) -> dict:
         tel = self.telemetry
         wall = now if now is not None else time.time()
         t0 = time.perf_counter()
@@ -239,11 +267,23 @@ class GraphIngestor:
                 refs=int(host.get("dict_refs", 0)),
             )
             self.commits.append(rec)
+            if self.lineage is not None and tag is not None:
+                # the store took it (the wait above synchronised the
+                # card): the committed low watermark may advance
+                self.lineage.mark_committed(tag, wall)
             with tel.span("commit.hooks"):
                 if self.commit_hook is not None:
                     self.commit_hook(et, s)
                 for hook in self.commit_hooks:
                     hook(et, s)
+            if self.lineage is not None and tag is not None:
+                # the hook fan-out (the snapshot absorb, the sketch
+                # update, the dictionary admission) has run: queries now
+                # see these records, so the queryable watermark may move.
+                # On the card the hooks' device work is only enqueued
+                # here: the hop's stream time is exact, its wall stamp
+                # is the enqueue's, as with every span
+                self.lineage.mark_queryable(tag, wall)
             out = {
                 "committed": True,
                 "stats": s,
@@ -272,7 +312,7 @@ class GraphIngestor:
                 if self.degraded:
                     out["degraded"] = True
             if archive_on_fail:
-                self._archive_put(et)
+                self._archive_put(et, tag, now=wall, degraded=bool(out.get("degraded")))
             self.commits.append(CommitRecord(wall, 0.0, 0, 0, 0, ok=False))
             out["archived"] = self.archive_depth
             return out
@@ -290,12 +330,19 @@ class GraphIngestor:
         while self.archive_depth:
             self._archive_refill()
             et = self.archive.popleft()
-            if self._commit(et, now, archive_on_fail=False)["committed"]:
+            tag = None
+            if self.lineage is not None and self._archive_tags:
+                tag = self._archive_tags.popleft()
+                self.lineage.mark_replay(tag, now if now is not None else time.time())
+            if self._commit(et, now, archive_on_fail=False, tag=tag)["committed"]:
                 n += 1
                 self.replayed += 1
                 continue
-            # failed head returns to the FRONT: replay order is FIFO
+            # failed head returns to the FRONT, with its tag: replay
+            # order is FIFO
             self.archive.appendleft(et)
+            if tag is not None:
+                self._archive_tags.appendleft(tag)
             break
         if n:
             self.telemetry.count("retry.replayed", n)
@@ -337,6 +384,9 @@ class GraphIngestor:
             "consecutive_failures": self.consecutive_failures,
             "next_retry_t": self.next_retry_t,
             "fail_hook": fh.state() if hasattr(fh, "state") else None,
+            "pool_tags": list(self._pool_tags),
+            "archive_tags": list(self._archive_tags),
+            "lineage_next": self._lineage_next,
         }
 
     def restore_state(self, s: dict) -> None:
@@ -362,3 +412,7 @@ class GraphIngestor:
         self.next_retry_t = float(s["next_retry_t"])
         if s.get("fail_hook") is not None and hasattr(self.fail_hook, "restore_state"):
             self.fail_hook.restore_state(s["fail_hook"])
+        # .get: states saved without lineage's keys
+        self._pool_tags = collections.deque(s.get("pool_tags", ()))
+        self._archive_tags = collections.deque(s.get("archive_tags", ()))
+        self._lineage_next = s.get("lineage_next")

@@ -6,7 +6,9 @@ Counterpart of `repro.monitor.export`, with the same metric names.
     counters, per-stage latency histograms (the fixed log-bucket
     state maps 1:1 onto cumulative `_bucket{le=...}` lines), monitor
     series gauges, SLO budget/burn gauges, health-event counters and
-    the controller score.  Scrapeable by pointing any Prometheus
+    the controller score, and with `lineage=` the lineage gauges
+    (watermarks, batches per path, freshness lags, record
+    conservation).  Scrapeable by pointing any Prometheus
     file/textfile collector at the `--prom-out` file.
   * `render_dashboard(monitor, registry=...)` — the live terminal
     view the CLI repaints while a scenario runs: rolling per-stage
@@ -17,19 +19,13 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+from repro_torch.lineage.export import prometheus_lines
 from repro_torch.telemetry.spans import NBUCKETS, TelemetryRegistry, bucket_upper_ns
 
 
 def _esc(v) -> str:
     return str(v).replace("\\", "\\\\").replace('"', '\\"') \
         .replace("\n", "\\n")
-
-
-def _no_lineage(lineage) -> None:
-    if lineage is not None:
-        raise NotImplementedError(
-            "lineage gauges: batch lineage comes to the port with ROADMAP "
-            "§1 Slice E.3")
 
 
 def _fmt(v: float) -> str:
@@ -41,10 +37,9 @@ def _fmt(v: float) -> str:
 def prometheus_text(monitor=None,
                     registry: Optional[TelemetryRegistry] = None,
                     lineage=None) -> str:
-    """Render the run's state in Prometheus exposition format.
-    `lineage` (the reference's watermark/freshness/conservation gauges)
-    raises `NotImplementedError` until the port has lineage."""
-    _no_lineage(lineage)
+    """Render the run's state in Prometheus exposition format; with
+    `lineage` (a `repro_torch.lineage.LineageTracker`), its watermark,
+    freshness and conservation gauges too."""
     lines: List[str] = []
     if registry is None and monitor is not None:
         registry = monitor._registry
@@ -127,6 +122,8 @@ def prometheus_text(monitor=None,
                      "decision-quality score in [0,1]")
         lines.append("# TYPE repro_controller_score gauge")
         lines.append(f"repro_controller_score {_fmt(monitor.controller_score)}")
+    if lineage is not None:
+        lines.extend(prometheus_lines(lineage))
     return "\n".join(lines) + "\n"
 
 

@@ -137,6 +137,12 @@ class HealthMonitor:
                 a["mu"].append(float(ev.payload["mu"]))
             a["spill_depth"] = max(a["spill_depth"],
                                    float(ev.payload.get("spill_depth", 0)))
+        elif k == "watermark":
+            # repro_torch.lineage staleness, re-emitted at each tick
+            # boundary (the tracker's hook runs after ours, so this
+            # lands in the row we just opened)
+            a["ingest_lag_ms"] = ev.payload.get("ingest_lag_ms")
+            a["queryable_lag_ms"] = ev.payload.get("queryable_lag_ms")
         elif k == "report":
             # run over: close out the final tick while the hub's state
             # is still live (finish() is idempotent on top of this)
@@ -156,10 +162,13 @@ class HealthMonitor:
             "spill_depth": a["spill_depth"],
             "mu": sum(a["mu"]) / len(a["mu"]) if a["mu"] else None,
             "commit_ms": None, "commit_p99_ms": None, "dict_hit": None,
-            # fed by lineage and checkpoints (ROADMAP Slice E.3, E.4),
-            # which the port has not yet: detectors and SLOs skip None
+            # fed by checkpoints (ROADMAP Slice E.4), which the port has
+            # not yet: detectors and SLOs skip None
             "ticks_since_checkpoint": None,
-            "ingest_lag_ms": None, "queryable_lag_ms": None,
+            # None when no lineage tracker is wired: detectors and SLOs
+            # skip None, so runs without lineage are unchanged
+            "ingest_lag_ms": a.get("ingest_lag_ms"),
+            "queryable_lag_ms": a.get("queryable_lag_ms"),
         }
         if self._tap is not None:
             h = self._tap.hist_delta("commit.upsert")

@@ -11,11 +11,14 @@ GraphZip dictionary's references and hit rate.  The CLI
 The port runs one shard or several (`ShardedPipeline`), optionally
 sketch-guided and with dictionary compression, with span telemetry and
 the controller audit trail (`telemetry`, and the `trace` and
-`trace_jsonl` exporters) and the health monitor (`monitor`).  The
-reference's other options (lineage, faults, retry and checkpoints)
-raise `NotImplementedError` until ROADMAP §1 Slice E.3 and E.4 bring
-them.  The report keeps every field of the reference's, at its inert
-default where the port has no such path yet.
+`trace_jsonl` exporters), the health monitor (`monitor`), batch lineage
+and its watermarks (`lineage`, `lineage_jsonl`), and injected commit
+faults with backoff-governed retry (`fault_plan`, `retry`).  The
+reference's checkpoints (`checkpoint_dir`, `resume`) and its fault
+plans' crash-at-tick kill raise `NotImplementedError` until ROADMAP §1
+Slice E.4 brings them, and with them the store and snapshot digests,
+which stay empty here.  The
+report keeps every field of the reference's.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from repro_torch.api import PipelineBuilder
 from repro_torch.configs.paper_ingest import IngestConfig
 from repro_torch.device import resolve
+from repro_torch.lineage import LineageTracker, flow_events, write_lineage_jsonl
 from repro_torch.monitor import HealthMonitor, default_slos
 from repro_torch.telemetry import TelemetryRegistry, write_chrome_trace, write_jsonl
 from repro_torch.workloads.scenarios import Scenario, get_scenario
@@ -69,13 +73,14 @@ class WorkloadReport:
     pattern_refs: int = 0        # total (pattern_id, bindings) references
     dict_hit_rate: float = 0.0   # dictionary hit rate over the whole run
     commit_ms_mean: float = 0.0  # mean successful-commit latency (ms)
-    # resilience path (not in the port yet: inert defaults)
-    commit_failures: int = 0
-    retries_replayed: int = 0
-    archived_total: int = 0
-    archive_remaining: int = 0
-    pool_overflows: int = 0
-    degraded_events: int = 0
+    # resilience path (inert defaults when off; the checkpoint fields and
+    # the digests stay so until ROADMAP §1 Slice E.4)
+    commit_failures: int = 0     # failed commit attempts (injected or real)
+    retries_replayed: int = 0    # archived batches successfully re-committed
+    archived_total: int = 0      # batches ever archived (no-batch-lost LHS)
+    archive_remaining: int = 0   # batches still awaiting replay at run end
+    pool_overflows: int = 0      # pool-cap diversions to the archive
+    degraded_events: int = 0     # ticks served in degraded (store-down) mode
     checkpoints_saved: int = 0
     resumed_from_tick: int = -1
     store_digest: str = ""
@@ -96,18 +101,19 @@ class WorkloadReport:
     slo_alerts: int = 0          # multi-window burn-rate alert onsets
     controller_score: float = 1.0  # mean per-decision quality in [0,1]
     decision_quality: Dict = dataclasses.field(default_factory=dict)
-    # lineage / freshness (not in the port yet)
+    # lineage / freshness (inert defaults when off)
     lineage_enabled: bool = False
-    ingest_lag_ms_p50: float = 0.0
+    ingest_lag_ms_p50: float = 0.0   # store staleness (stream-time ms)
     ingest_lag_ms_p99: float = 0.0
-    queryable_lag_ms_p99: float = 0.0
+    queryable_lag_ms_p99: float = 0.0  # query-surface staleness
     path_mix: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # final watermarks: {committed, queryable, max_event_t, pending_*}
     watermark_final: Dict = dataclasses.field(default_factory=dict)
-    records_in: int = 0
-    records_committed: int = 0
-    records_dropped: int = 0
-    records_in_flight: int = 0
-    conservation_warning: str = ""
+    records_in: int = 0          # records that entered the buffer
+    records_committed: int = 0   # ... that landed in the store
+    records_dropped: int = 0     # ... terminally lost (lineage-observed)
+    records_in_flight: int = 0   # ... still buffered/spilled/archived
+    conservation_warning: str = ""  # non-empty iff the invariant broke
 
     @property
     def n_transitions(self) -> int:
@@ -140,7 +146,22 @@ class WorkloadReport:
                if self.dict_compress else "")
             + (self._stage_summary() if self.telemetry_enabled else "")
             + (self._monitor_summary() if self.monitor_enabled else "")
+            + (self._lineage_summary() if self.lineage_enabled else "")
         )
+
+    def _lineage_summary(self) -> str:
+        mix = " ".join(f"{k}={v}" for k, v in sorted(self.path_mix.items()))
+        wq = self.watermark_final.get("queryable")
+        warn = f" | WARNING: {self.conservation_warning}" \
+            if self.conservation_warning else ""
+        return (f"\nlineage: {self.records_in} in -> "
+                f"{self.records_committed} committed, "
+                f"{self.records_dropped} dropped, "
+                f"{self.records_in_flight} in flight | "
+                f"lag p50={self.ingest_lag_ms_p50:.0f}ms "
+                f"query_p99={self.queryable_lag_ms_p99:.0f}ms | "
+                f"paths: {mix or '-'} | Wq="
+                + (f"{wq:.1f}" if wq is not None else "-") + warn)
 
     def _monitor_summary(self) -> str:
         onset = f"burst_onset_tick={self.burst_onset_tick}" \
@@ -179,17 +200,17 @@ def _timeline(samples: Dict, actions: List[str], shard: int) -> List[Dict]:
     return out
 
 
-def _unsupported(lineage, lineage_jsonl, fault_plan, retry, checkpoint_dir,
-                 resume) -> None:
-    """Raise for the reference's options the port does not have yet."""
-    later = {"lineage": lineage, "lineage_jsonl": lineage_jsonl,
-             "fault_plan": fault_plan, "retry": retry,
-             "checkpoint_dir": checkpoint_dir, "resume": resume}
+def _unsupported(checkpoint_dir, resume, fault_plan) -> None:
+    """Raise for the reference's options the port does not have yet: its
+    checkpoint loop (`repro.resilience.drive`) saves checkpoints and
+    honours a fault plan's `crash_at_tick`."""
+    later = {"checkpoint_dir": checkpoint_dir, "resume": resume,
+             "fault_plan.crash_at_tick": getattr(fault_plan, "crash_at_tick", None)}
     asked = [k for k, v in later.items() if v not in (None, False)]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: lineage and resilience come to the port "
-            f"with ROADMAP §1 Slice E.3 and E.4")
+            f"{', '.join(asked)}: checkpoint, resume and the crash-at-tick kill "
+            f"come to the port with ROADMAP §1 Slice E.4")
 
 
 class _Tally:
@@ -298,11 +319,26 @@ def run_scenario(
     (`controller_score`); every audit record gains its `quality`
     verdict in place.
 
-    The options of later slices raise `NotImplementedError` (module
-    docstring)."""
+    `lineage` turns on event-time watermarks + per-batch provenance
+    (pass True, or a `repro_torch.lineage.LineageTracker` to keep for
+    inspection).  The report then carries the freshness SLIs
+    (`ingest_lag_ms_p50/p99`, `queryable_lag_ms_p99`), the commit path
+    mix, the final watermarks, and the record-conservation counters
+    (with `conservation_warning` set iff the invariant ``records_in ==
+    committed + dropped + in_flight`` broke).  With `trace` also set,
+    the Chrome trace gains per-batch flow events; `lineage_jsonl`
+    writes the sampled hop logs (implies lineage).
+
+    `fault_plan` (a `repro_torch.resilience.FaultPlan`) injects commit
+    faults; it arms the default `RetryPolicy` unless `retry` overrides
+    (pass a policy to customise, `False` to disable).  The report then
+    carries the retry and archive accounting.
+
+    `checkpoint_dir`, `resume` and a plan's `crash_at_tick` raise
+    `NotImplementedError` (module docstring)."""
     if shards < 1:
         raise ValueError("shards must be >= 1")
-    _unsupported(lineage, lineage_jsonl, fault_plan, retry, checkpoint_dir, resume)
+    _unsupported(checkpoint_dir, resume, fault_plan)
     scn = get_scenario(scenario) if isinstance(scenario, str) else scenario
     ticks = int(ticks if ticks is not None else scn.ticks)
     b, src, tally = scenario_builder(
@@ -321,6 +357,16 @@ def run_scenario(
             else HealthMonitor(slos=default_slos(cpu_max=b.cfg.cpu_max,
                                                  theta2=b.cfg.theta2))
         b = b.with_monitor(mon)
+    trk = None
+    if lineage or lineage_jsonl:
+        trk = lineage if isinstance(lineage, LineageTracker) \
+            else LineageTracker(dt=float(src.dt))
+        b = b.with_lineage(trk)
+    if fault_plan is not None:
+        b = b.with_faults(fault_plan)
+    if retry is not False and (retry is not None or fault_plan is not None):
+        # a fault plan arms the default policy unless retry=False
+        b = b.with_retry(retry if retry not in (None, True) else None)
     if on_event is not None:
         b = b.on_event(on_event)
     pipe = b.build()
@@ -353,12 +399,34 @@ def run_scenario(
         # already carries its quality verdict in the trace files
         mon.finish()
         mon_report = mon.report()
+    lineage_lags: Dict[str, float] = {}
+    cons: Dict = {}
+    cons_warning = ""
+    if trk is not None:
+        # conservation: whatever still sits in the stage buffers and
+        # spill files is accounted in flight, not lost
+        stages = pipe.shards if shards > 1 else [pipe.buffer_stage]
+        buffered = sum(len(st.buffer) + st.spilled_records for st in stages)
+        cons = trk.conservation(buffered_records=buffered)
+        if cons["imbalance"]:
+            cons_warning = (f"record conservation broke: in="
+                            f"{cons['records_in']} != committed="
+                            f"{cons['records_committed']} + dropped="
+                            f"{cons['records_dropped']} + in_flight="
+                            f"{cons['records_in_flight']} "
+                            f"(imbalance {cons['imbalance']:+d})")
+        lineage_lags = trk.lag_percentiles_ms()
+        if lineage_jsonl:
+            write_lineage_jsonl(trk, lineage_jsonl, meta={
+                "scenario": scn.name, "seed": seed, "shards": shards,
+                "conservation_warning": cons_warning})
     stage_latency: Dict[str, Dict[str, float]] = {}
     if reg is not None:
         stage_latency = reg.summary()
         if trace:
             write_chrome_trace(reg, trace, meta={
-                "scenario": scn.name, "seed": seed, "shards": shards})
+                "scenario": scn.name, "seed": seed, "shards": shards},
+                extra_events=flow_events(trk, reg.t0_ns) if trk is not None else None)
         if trace_jsonl:
             write_jsonl(reg, trace_jsonl)
     return WorkloadReport(
@@ -408,4 +476,15 @@ def run_scenario(
         slo_alerts=mon_report.get("slo_alerts", 0),
         controller_score=mon_report.get("controller_score", 1.0),
         decision_quality=mon_report.get("quality", {}),
+        lineage_enabled=trk is not None,
+        ingest_lag_ms_p50=lineage_lags.get("ingest_lag_ms_p50", 0.0),
+        ingest_lag_ms_p99=lineage_lags.get("ingest_lag_ms_p99", 0.0),
+        queryable_lag_ms_p99=lineage_lags.get("queryable_lag_ms_p99", 0.0),
+        path_mix=dict(trk.path_counts) if trk is not None else {},
+        watermark_final=trk.watermarks() if trk is not None else {},
+        records_in=cons.get("records_in", 0),
+        records_committed=cons.get("records_committed", 0),
+        records_dropped=cons.get("records_dropped", 0),
+        records_in_flight=cons.get("records_in_flight", 0),
+        conservation_warning=cons_warning,
     )

@@ -3,7 +3,8 @@
   * Importing every `repro_torch` module loads neither `jax` nor the
     reference package `repro` (checked in a fresh interpreter; the walk
     includes the ops layer: `telemetry.audit`, `telemetry.export`, the
-    `monitor` package and `launch.telemetry`/`launch.monitor`), and no
+    `monitor`, `lineage` and `resilience` packages and
+    `launch.telemetry`/`launch.monitor`/`launch.lineage`), and no
     source file under `src/repro_torch` imports either.
   * Entry points default to the card: without one, a run that did not
     ask for the CPU raises instead of carrying on on the host.
@@ -33,7 +34,10 @@ bad = sorted(m for m in sys.modules
 ops = {"repro_torch.telemetry.audit", "repro_torch.telemetry.export", "repro_torch.monitor",
        "repro_torch.monitor.detectors", "repro_torch.monitor.slo", "repro_torch.monitor.quality",
        "repro_torch.monitor.monitor", "repro_torch.monitor.export",
-       "repro_torch.launch.telemetry", "repro_torch.launch.monitor"}
+       "repro_torch.launch.telemetry", "repro_torch.launch.monitor",
+       "repro_torch.lineage", "repro_torch.lineage.tracker", "repro_torch.lineage.export",
+       "repro_torch.resilience", "repro_torch.resilience.retry",
+       "repro_torch.resilience.faults", "repro_torch.launch.lineage"}
 assert ops <= set(names), sorted(ops - set(names))
 print(len(names), bad)
 """
@@ -98,7 +102,7 @@ def test_workload_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatc
     assert code == 0 and rep.total_records > 0 and rep.shards == 2
 
 
-@pytest.mark.parametrize("name", ["telemetry", "monitor"])
+@pytest.mark.parametrize("name", ["telemetry", "monitor", "lineage"])
 def test_ops_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch, tmp_path, capsys,
                                                                  name):
     import importlib
@@ -109,9 +113,10 @@ def test_ops_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch, tm
         cli.main(["--dryrun", "--ticks", "2"])
     trace = str(tmp_path / "t.json")
     argv = ["--dryrun", "--ticks", "40", "--device", "cpu", "--shards", "2"]
-    code, rep, out = cli.run(argv + (["--trace-out", trace] if name == "telemetry" else []))
+    code, rep = cli.run(argv + (["--trace-out", trace] if name != "monitor" else []))[:2]
     assert code == 0 and rep.total_records > 0 and rep.shards == 2 and rep.telemetry_enabled
-    assert rep.monitor_enabled == (name == "monitor")
+    assert rep.monitor_enabled == (name in ("monitor", "lineage"))
+    assert rep.lineage_enabled == (name == "lineage")
     assert "dryrun ok" in capsys.readouterr().out
 
 

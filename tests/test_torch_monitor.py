@@ -11,9 +11,12 @@
   * The flash_crowd dryrun run, monitored, is held against the
     reference's in tests/test_torch_telemetry.py, which makes the one
     reference run that both CLIs replay.
-  * `shards=2` with telemetry and the monitor, under per-shard replay:
-    audit records tagged 0 and 1 in the reference's counts and
-    actions, and the same non-wall-clock detector events.
+  * `shards=2` with telemetry, the monitor and lineage, under per-shard
+    replay: audit records tagged 0 and 1 in the reference's counts and
+    actions, the same non-wall-clock detector events, and the same
+    lineage tracker state and report fields.
+  * With a lineage tracker, `prometheus_text` appends the reference's
+    lineage gauges.
 """
 import dataclasses
 import math
@@ -175,12 +178,20 @@ def test_monitor_report_and_exposition_match_reference():
 
 
 def test_lineage_gauges_and_regression_gate_are_not_ported_yet(tmp_path, capsys):
-    mon, reg = _driven(T, MetricsHub)
-    with pytest.raises(NotImplementedError, match="Slice E.3"):
-        M.prometheus_text(monitor=mon, lineage=object())
-    with pytest.raises(NotImplementedError, match="Slice E.3"):
-        M.write_prometheus(str(tmp_path / "m.prom"), monitor=mon, lineage=object())
-    assert not (tmp_path / "m.prom").exists()
+    """The lineage gauges are ported now: with a tracker driven the same
+    way, the Prometheus text and file are the reference's.  The
+    regression gate is still not ported (ROADMAP §1 item 2.5)."""
+    from test_torch_lineage import PORT, REF, _random_marks
+
+    (gm, _), (wm, _) = _driven(T, MetricsHub), _driven(RT, RefHub)
+    gtrk, wtrk = (_random_marks(side, np.random.default_rng(4)) for side in (PORT, REF))
+    got = M.prometheus_text(monitor=gm, lineage=gtrk)
+    assert got == RM.prometheus_text(monitor=wm, lineage=wtrk)
+    assert 'repro_lineage_watermark{kind="queryable"}' in got
+    assert M.prometheus_text(lineage=gtrk) == RM.prometheus_text(lineage=wtrk)
+    M.write_prometheus(str(tmp_path / "m.prom"), monitor=gm, lineage=gtrk)
+    RM.write_prometheus(str(tmp_path / "r.prom"), monitor=wm, lineage=wtrk)
+    assert (tmp_path / "m.prom").read_text() == (tmp_path / "r.prom").read_text() == got
     code, rep, mon = cli.run(["regression", "--baseline", "0"])
     assert code != 0 and rep is None
     assert "item 2.5" in capsys.readouterr().err
@@ -196,13 +207,32 @@ def _steady_events(events):
 
 
 def test_sharded_run_under_replay_matches_reference(tmp_path_factory, monkeypatch):
+    """With lineage on both sides too: the same tracker state (each tag
+    stamped with its shard), timeline and lineage report fields."""
+    from repro.lineage import LineageTracker as RefTracker
+    from repro_torch.lineage import LineageTracker
+    from test_torch_lineage import tracker_view
+
     tmp = tmp_path_factory.mktemp("monitor_sharded")
-    ref_reg = RT.TelemetryRegistry()
-    ref = _reference_run(tmp, False, shards=2, telemetry=ref_reg, monitor=True)
+    ref_reg, ref_trk = RT.TelemetryRegistry(), RefTracker()
+    ref = _reference_run(tmp, False, shards=2, telemetry=ref_reg, monitor=True,
+                         lineage=ref_trk)
     _replaying(monkeypatch, tmp, ref)
-    reg = T.TelemetryRegistry()
+    reg, trk = T.TelemetryRegistry(), LineageTracker()
     rep = harness.run_scenario(SCENARIO, ticks=TICKS, seed=SEED, shards=2, device="cpu",
-                               telemetry=reg, monitor=True, **CAPS)
+                               telemetry=reg, monitor=True, lineage=trk, **CAPS)
+    assert tracker_view(trk) == tracker_view(ref_trk)
+    assert list(trk.timeline) == list(ref_trk.timeline)
+    assert {t.shard for t in trk.completed} == {0, 1}
+    lineage_fields = ("lineage_enabled", "ingest_lag_ms_p50", "ingest_lag_ms_p99",
+                      "queryable_lag_ms_p99", "path_mix", "watermark_final", "records_in",
+                      "records_committed", "records_dropped", "records_in_flight",
+                      "conservation_warning")
+    want = ref["report"]
+    assert {k: getattr(rep, k) for k in lineage_fields} == \
+        {k: getattr(want, k) for k in lineage_fields}
+    assert rep.lineage_enabled and rep.records_in > 0 and not rep.conservation_warning
+    assert rep.slo_summary["freshness"] == want.slo_summary["freshness"]
 
     def by_shard(audit):
         return {s: [(r.action, r.reason, r.beta, r.inputs["dropped_inserts"],

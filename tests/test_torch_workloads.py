@@ -248,33 +248,55 @@ def test_sharded_run_scenario_under_replay_matches_reference(tmp_path_factory, m
         np.testing.assert_array_equal(store[name], arr.astype(store[name].dtype), err_msg=name)
 
 
-@pytest.mark.parametrize("option", [
-    dict(lineage=True), dict(lineage_jsonl="x.jsonl"), dict(fault_plan=object()),
-    dict(retry=True), dict(checkpoint_dir="ckpt"), dict(resume=True)])
+@pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(resume=True)])
 def test_options_of_later_slices_raise(option):
-    with pytest.raises(NotImplementedError, match="Slice"):
+    with pytest.raises(NotImplementedError, match="Slice E.4"):
         harness.run_scenario(SCENARIO, ticks=2, device="cpu", **option)
 
 
-@pytest.mark.parametrize("option", ["telemetry", "monitor", "trace", "trace_jsonl"])
+@pytest.mark.parametrize("option", ["telemetry", "monitor", "trace", "trace_jsonl", "lineage",
+                                    "lineage_jsonl", "fault_plan", "retry"])
 def test_options_of_this_slice_run_and_fill_the_report(option, tmp_path):
-    """telemetry, monitor, trace and trace_jsonl run on the host (the
-    whole comparison with the reference is in test_torch_telemetry.py
-    and test_torch_monitor.py): each turns telemetry on, and the report
-    carries the stage latencies and one audit record a decision; the
-    monitor adds its verdict, and the exporters their files."""
+    """The ops layer's options run on the host (the whole comparison with
+    the reference is in test_torch_telemetry.py, test_torch_monitor.py
+    and test_torch_lineage.py).  telemetry, monitor, trace and
+    trace_jsonl each turn telemetry on, and the report carries the stage
+    latencies and one audit record a decision; the monitor adds its
+    verdict, and the exporters their files.  lineage and lineage_jsonl
+    fill the report's lineage fields, the JSONL its hop logs; a fault
+    plan (arming the default retry policy) and a retry policy alone fill
+    the retry and archive accounting."""
+    from repro_torch.resilience import FaultPlan, RetryPolicy
+
     value = {"telemetry": True, "monitor": True, "trace": str(tmp_path / "t.json"),
-             "trace_jsonl": str(tmp_path / "t.jsonl")}[option]
+             "trace_jsonl": str(tmp_path / "t.jsonl"), "lineage": True,
+             "lineage_jsonl": str(tmp_path / "l.jsonl"),
+             "fault_plan": FaultPlan(fail_times=((2.0, 4.0),)),
+             "retry": RetryPolicy(jitter=0.0)}[option]
     rep = harness.run_scenario(SCENARIO, ticks=8, device="cpu", **CAPS, **{option: value})
-    assert rep.telemetry_enabled and rep.audit_decisions == 8
-    assert {"tick", "filter", "decide"} <= set(rep.stage_latency_ms)
+    traced = option in ("telemetry", "monitor", "trace", "trace_jsonl")
+    assert rep.telemetry_enabled == traced
     assert rep.monitor_enabled == (option == "monitor")
+    assert rep.lineage_enabled == (option in ("lineage", "lineage_jsonl"))
+    if traced:
+        assert rep.audit_decisions == 8
+        assert {"tick", "filter", "decide"} <= set(rep.stage_latency_ms)
+        assert "telemetry:" in rep.summary()
     if option == "monitor":
         assert set(rep.slo_summary) == {"commit_p99", "no_drops", "throughput_floor",
                                         "mu_bounded", "freshness"}
         assert rep.decision_quality["decisions"] == 8 and 0.0 <= rep.controller_score <= 1.0
         assert "monitor:" in rep.summary()
-    if option in ("trace", "trace_jsonl"):
+    if option in ("trace", "trace_jsonl", "lineage_jsonl"):
         with open(value) as f:
             assert f.read().strip()
-    assert "telemetry:" in rep.summary()
+    if rep.lineage_enabled:
+        assert rep.records_in == rep.total_records > 0 and not rep.conservation_warning
+        assert rep.records_in == rep.records_committed + rep.records_in_flight
+        assert rep.path_mix and rep.watermark_final["queryable"] is not None
+        assert "lineage:" in rep.summary()
+    if option == "fault_plan":
+        assert rep.commit_failures > 0 and rep.archived_total > 0
+        assert rep.archived_total == rep.retries_replayed + rep.archive_remaining
+    if option == "retry":
+        assert rep.commit_failures == rep.archived_total == 0

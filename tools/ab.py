@@ -5,6 +5,7 @@
     python3 tools/ab.py PARENT_ROOT CHANGE_ROOT sketch
     python3 tools/ab.py PARENT_ROOT CHANGE_ROOT traffic
     python3 tools/ab.py PARENT_ROOT CHANGE_ROOT bloom
+    python3 tools/ab.py PARENT_ROOT CHANGE_ROOT profiled
 
 Runs the named measurement of each tree in a fresh process, in the order
 parent, change, change, parent, so that both trees run on one card in
@@ -47,6 +48,11 @@ card's name and power limit.
     generators and seed) and a diversity step (64 rows, 16,384 Zipf keys
     into the filter of 60 earlier steps), each timed by
     `chip_smoke._time_ms`, median of BLOOM_REPS.
+  * profiled: each tree's own `chip_smoke.py`, after `build.build_all()`:
+    its profiled phases (3, 7, 11 and 17, under torch.profiler) and
+    phase 27 (the workload path with telemetry and the monitor), and
+    phase 29 (`launch.lineage`) where the tree has it, each printing its
+    seconds as `chip_smoke.py` does.
 
 Each snippet gets CHANGE_ROOT and the tree's root as its arguments.
 """
@@ -171,6 +177,25 @@ for rows in cs.BLOOM_ROWS:
 print("k6 step", json.dumps({"rows": cs.DIVERSITY_ROWS, "lanes": n, "step_ms": cs._time_ms(
     torch, ops.bloom_diversity, (), (batch, bm), REPS)}), flush=True)
 """ % BLOOM_REPS,
+    "profiled": """
+import subprocess, sys, time, torch
+sys.path.insert(0, sys.argv[2])
+import chip_smoke as cs
+from repro_torch.kernels import build
+
+build.build_all()
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True, check=True).stdout.strip()
+phases = [(3, cs.tick_breakdown, (torch,)), (7, cs.query_breakdown, (torch,)),
+          (11, cs.workload_breakdown, (torch,)), (17, cs.sharded_breakdown, (torch,)),
+          (27, cs.monitored_workload, (torch, smi))]
+if hasattr(cs, "lineage_path"):
+    phases.append((29, cs.lineage_path, (torch, smi)))
+for number, fn, args in phases:
+    t = time.perf_counter()
+    fn(*args)
+    print(f"phase {number} ({fn.__name__}): {time.perf_counter() - t:.3f} s", flush=True)
+""",
 }
 
 
