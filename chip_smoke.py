@@ -196,7 +196,25 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      differs), and requires the same tracker state (hop wall clock
      masked), timeline, freshness table, path mix, conservation,
      lineage gauges, hop logs, freshness SLO and ingestor accounting;
-     prints the tracker's host ms a tick and the exporters' ms once.
+     prints the tracker's host ms a tick and the exporters' ms once;
+ 30. drives the chaos CLI, `launch.chaos`, at its defaults (`flash_crowd`,
+     120 ticks, seed 0, a store outage over 30:45, a checkpoint every 16
+     ticks, a crash at 60, a 2^20-node, 2^21-edge store), counters set to
+     0 just before and read just after: requires exit 0, every check of
+     its verdict (bit-exact store and snapshot, equal records, no batch
+     lost, no hot retry loop), the resume from 48 of the kill at 60, K1
+     two launches a commit that reached the store in the three runs
+     (replays included) and K4 one a 2,048-record block of every tick
+     the sources yielded; resumes the card's step-48 checkpoint on the
+     host (its controller deciding for itself, the card's decisions
+     replayed only if one differs) onto the card's uninterrupted
+     digests; then kills at 24 and resumes, through `run_scenario` on the
+     card, the sketch-guided run with GraphZip (48 ticks, an outage over
+     10:16, a checkpoint every 8) and requires its digests and every
+     leaf of its store, sketch and dictionary equal to an uninterrupted
+     run's, K3 and K5 launched; prints the launches, a checkpoint's
+     bytes, the capture's ms, the write's and the restore's seconds and
+     the digests' seconds.
 The profiled phases (3, 7, 11, 17 and 26) record device activity only.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
@@ -2557,6 +2575,256 @@ def lineage_path(torch, smi):
     return launches
 
 
+# Phase 30: launch.chaos at its defaults (flash_crowd, 120 ticks, seed 0, a
+# crash at 60, a checkpoint every 16, a store outage over 30:45, the default
+# RetryPolicy, a 2^20-node, 2^21-edge store), whose resume starts from 48;
+# then one kill and resume through run_scenario with the sketch and the
+# dictionary on (48 ticks, an outage over 10:16, a crash at 24, a checkpoint
+# every 8, RetryPolicy(jitter=0.0), the default store)
+CHAOS_DEFAULTS = dict(scenario="flash_crowd", ticks=120, seed=0, crash_at=60, every=16,
+                      outage=(30.0, 45.0), resumed_from=48)
+CKPT_RUN = dict(ticks=48, seed=0, sketch_guided=True, dict_compress=True, checkpoint_every=8)
+CKPT_OUTAGE, CKPT_CRASH = (10.0, 16.0), 24
+SAMPLER_BLOCK = 2_048  # ScenarioSource's block: one K4 launch a block a tick
+
+
+@contextlib.contextmanager
+def _chaos_watch(decisions=None):
+    """Inside the block `harness.run_scenario` builds pipelines that
+    record, build by build: the record count of every tick the source
+    yields, the commits that reached the store (the ingestor's commit
+    hooks, replays included), the (action, beta) decisions and the
+    pipeline; and each checkpoint restore first keeps a copy of the step
+    it reads.  With `decisions`, the controller replays those in place
+    of its own.  Yields the dict the records land in."""
+    import os
+    import shutil
+
+    from repro_torch.resilience import checkpoint as CK
+    from repro_torch.workloads import harness
+
+    seen = {"ticks": [], "stored": [], "decisions": [], "pipes": [], "kept": []}
+    restore = CK.PipelineCheckpointer.restore
+
+    class Recording(harness.ScenarioSource):
+        def ticks(self):
+            counts = []
+            seen["ticks"].append(counts)
+            for tick in super().ticks():
+                counts.append(len(tick.records))
+                yield tick
+
+    class Builder(harness.PipelineBuilder):
+        def build(self):
+            if decisions is not None:
+                self.with_controller(_replaying(self.cfg, decisions, self.device))
+            pipe = super().build()
+            stored, taken = [0], []
+            pipe.sink.ingestor.commit_hooks.append(
+                lambda et, s: stored.__setitem__(0, stored[0] + 1))
+            pipe.controller.on_decision = lambda d: taken.append((d.action, d.beta))
+            seen["stored"].append(stored)
+            seen["decisions"].append(taken)
+            seen["pipes"].append(pipe)
+            return pipe
+
+    def keeping(self, pipe, source=None, step=None, expect=None):
+        s = step if step is not None else self.latest_step()
+        kept = f"{self.dir}_kept_{s}"
+        shutil.copytree(os.path.join(self.dir, f"step_{s:08d}"),
+                        os.path.join(kept, f"step_{s:08d}"))
+        seen["kept"].append(kept)
+        return restore(self, pipe, source, step, expect)
+
+    saved = harness.ScenarioSource, harness.PipelineBuilder
+    harness.ScenarioSource, harness.PipelineBuilder = Recording, Builder
+    CK.PipelineCheckpointer.restore = keeping
+    try:
+        yield seen
+    finally:
+        harness.ScenarioSource, harness.PipelineBuilder = saved
+        CK.PipelineCheckpointer.restore = restore
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def _span_seconds(reg, name):
+    """Each recorded `name` span of `reg`, in seconds (its exact ns)."""
+    return [(t1 - t0) / 1e9 for n, _, t0, t1 in reg.events if n == name]
+
+
+def _components(pipe):
+    """The reference's numpy view of every array leaf (a checkpoint's
+    leaves), by leaf key."""
+    from repro_torch import convert
+    from repro_torch.resilience import checkpoint as CK
+
+    return {f"{name}.{i}": a for name, obj in CK._array_components(pipe).items()
+            for i, a in enumerate(convert.reference_arrays(obj).values())}
+
+
+def chaos_path(torch, smi):
+    """Phase 30: kill and resume on the card through `launch.chaos` and
+    `run_scenario`, the card's checkpoint resumed on the host."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import chaos
+    from repro_torch.query.snapshot import build_snapshot
+    from repro_torch.resilience import FaultPlan, PipelineKilled, RetryPolicy, pytree_digest
+    from repro_torch.telemetry import TelemetryRegistry
+    from repro_torch.workloads import harness
+
+    d = CHAOS_DEFAULTS
+    lo, hi = d["outage"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- launch.chaos at its defaults --------------------------------
+        work = os.path.join(tmp, "chaos")
+        out = io.StringIO()
+        build.launches.clear()
+        t0 = time.perf_counter()
+        with _chaos_watch() as card, contextlib.redirect_stdout(out):
+            code, verdict = chaos.run(["--dir", work, "--json", os.path.join(tmp, "v.json")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = dict(build.launches)
+        printed = out.getvalue()
+        stored = sum(s[0] for s in card["stored"])
+        k4_want = sum(-(-n // SAMPLER_BLOCK) for counts in card["ticks"] for n in counts)
+        checks = {
+            "exit 0": code == 0 and "chaos ok" in printed,
+            "every check": verdict is not None and all(verdict["checks"].values()),
+            "resumed from 48, killed at 60": verdict is not None
+            and (verdict["resumed_from"], verdict["killed_at"])
+            == (d["resumed_from"], d["crash_at"]),
+            "three runs": len(card["pipes"]) == 3 and len(card["kept"]) == 1,
+            "K1 two a stored commit": launches.get("fused_upsert", 0) == 2 * stored > 0,
+            "K4 one a block a tick": launches.get("traffic_ids", 0) == k4_want > 0,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"chaos path: {checks}; launches {launches}, stored "
+                                 f"{stored}, K4 wanted {k4_want}\n{printed}")
+        step_bytes = _dir_bytes(card["kept"][0])
+
+        # ---- the card's step-48 checkpoint, resumed on the host ----------
+        def host_resume(name, decisions=None):
+            ckpt = shutil.copytree(card["kept"][0], os.path.join(tmp, name))
+            with _chaos_watch(decisions) as host:
+                rep = harness.run_scenario(
+                    d["scenario"], ticks=d["ticks"], seed=d["seed"], device="cpu",
+                    fault_plan=FaultPlan(fail_times=((lo, hi),)), retry=RetryPolicy(),
+                    checkpoint_dir=ckpt, checkpoint_every=d["every"], resume=True,
+                    spill_dir=os.path.join(tmp, f"{name}_spill"))
+            return rep, host["decisions"][0]
+
+        t0 = time.perf_counter()
+        rep, taken = host_resume("host")
+        replayed = taken != card["decisions"][2]
+        if replayed:
+            rep, taken = host_resume("host_replayed", card["decisions"][2])
+        host_s = time.perf_counter() - t0
+        want = (verdict["ref"]["store_digest"], verdict["ref"]["snapshot_digest"])
+        if (rep.store_digest, rep.snapshot_digest) != want \
+                or rep.resumed_from_tick != d["resumed_from"] \
+                or rep.total_records != verdict["ref"]["records"]:
+            raise AssertionError(f"chaos path: the host's resume of the card's step "
+                                 f"{d['resumed_from']} gives {rep.store_digest[:16]}, "
+                                 f"{rep.snapshot_digest[:16]} against the card's "
+                                 f"{want[0][:16]}, {want[1][:16]} (decisions replayed: "
+                                 f"{replayed})")
+
+        # ---- the sketch and the dictionary, killed and resumed on the card
+        plan = FaultPlan(fail_times=(CKPT_OUTAGE,), crash_at_tick=CKPT_CRASH)
+        kw = dict(CKPT_RUN, retry=RetryPolicy(jitter=0.0), device="cuda")
+        ckdir = os.path.join(tmp, "sketch_dict")
+        regs = TelemetryRegistry(), TelemetryRegistry()
+        build.launches.clear()
+        with _chaos_watch() as sd:
+            ref = harness.run_scenario("flash_crowd", fault_plan=plan.without_crash(),
+                                       spill_dir=os.path.join(tmp, "sd_ref"), **kw)
+            try:
+                harness.run_scenario("flash_crowd", fault_plan=plan, checkpoint_dir=ckdir,
+                                     telemetry=regs[0], spill_dir=os.path.join(tmp, "sd"), **kw)
+                raise AssertionError("chaos path: crash_at_tick never fired")
+            except PipelineKilled as killed:
+                killed_at = killed.tick
+            res = harness.run_scenario("flash_crowd", fault_plan=plan.without_crash(),
+                                       checkpoint_dir=ckdir, resume=True, telemetry=regs[1],
+                                       spill_dir=os.path.join(tmp, "sd"), **kw)
+        torch.cuda.synchronize()
+        sd_launches = dict(build.launches)
+        got, want_leaves = _components(sd["pipes"][2]), _components(sd["pipes"][0])
+        differ = sorted(k for k in want_leaves if k not in got
+                        or got[k].dtype != want_leaves[k].dtype
+                        or not np.array_equal(got[k], want_leaves[k]))
+        sd_checks = {
+            "killed at 24, resumed from 24": (killed_at, res.resumed_from_tick)
+            == (CKPT_CRASH, CKPT_CRASH),
+            "digests": (res.store_digest, res.snapshot_digest)
+            == (ref.store_digest, ref.snapshot_digest) and bool(ref.store_digest),
+            "sketch and dictionary leaves": not differ and set(got) == set(want_leaves)
+            and {"sink_sketch.0", "stage0_dict.0"} <= set(got),
+            "records": res.total_records == ref.total_records,
+            "outage bit": ref.commit_failures > 0,
+            "K3 and K5 ran": sd_launches.get("sketch_scatter", 0) > 0
+            and sd_launches.get("pattern_mine", 0) > 0,
+        }
+        if not all(sd_checks.values()):
+            raise AssertionError(f"chaos path, sketch and dictionary: {sd_checks}; leaves "
+                                 f"that differ: {differ}")
+        sd_bytes = _dir_bytes(os.path.join(ckdir, f"step_{CKPT_RUN['ticks']:08d}"))
+        store = sd["pipes"][2].store
+        t0 = time.perf_counter()
+        pytree_digest(store)
+        store_digest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pytree_digest(build_snapshot(store))
+        snapshot_digest_s = time.perf_counter() - t0
+
+    capture = [s * 1e3 for r in regs for s in _span_seconds(r, "checkpoint.capture")]
+    write = [s for r in regs for s in _span_seconds(r, "checkpoint.write")]
+    restore = _span_seconds(regs[1], "checkpoint.restore")
+    store_bytes = sum(a.nbytes for k, a in _components(sd["pipes"][2]).items()
+                      if k.startswith("store."))
+    print("chaos path: " + json.dumps({
+        "card": smi, "deployment": d, "cli_s": cli_s, "verdict": verdict,
+        "commits_stored": stored, "k4_launches_wanted": k4_want,
+        "launches": {k: launches.get(k, 0) for k in ("fused_upsert", "traffic_ids")},
+        "checkpoint_bytes_step48": step_bytes,
+        "host_resume_s": host_s, "host_decided_alike": not replayed,
+        "sketch_dict": {"ticks": CKPT_RUN["ticks"], "outage": CKPT_OUTAGE, "crash": CKPT_CRASH,
+                        "every": CKPT_RUN["checkpoint_every"], "records": res.total_records,
+                        "commit_failures": ref.commit_failures,
+                        "launches": {k: sd_launches.get(k, 0) for k in
+                                     ("fused_upsert", "traffic_ids", "sketch_scatter",
+                                      "pattern_mine")},
+                        "checkpoint_bytes": sd_bytes, "store_leaf_bytes": store_bytes},
+        "checkpoint_capture_ms": capture, "checkpoint_write_s": write,
+        "checkpoint_restore_s": restore, "store_digest_s": store_digest_s,
+        "snapshot_digest_s": snapshot_digest_s}), flush=True)
+    print(f"chaos path on {smi}: launch.chaos killed at {verdict['killed_at']} and resumed "
+          f"from {verdict['resumed_from']} bit-exact ({cli_s} s for the three runs); K1 "
+          f"{launches.get('fused_upsert', 0)} launches for {stored} stored commits (replays "
+          f"included), K4 {launches.get('traffic_ids', 0)} for {k4_want} blocks; the card's "
+          f"step-48 checkpoint ({step_bytes} bytes) resumed on the host onto the card's "
+          f"digests" + (" under the card's decisions" if replayed else ", deciding for itself")
+          + f" ({host_s} s); the sketch and dictionary run resumed bit-exact with K3 "
+          f"{sd_launches.get('sketch_scatter', 0)} and K5 {sd_launches.get('pattern_mine', 0)} "
+          f"launches, its checkpoint {sd_bytes} bytes; capture "
+          f"{statistics.mean(capture)} ms, write {statistics.mean(write)} s, restore "
+          f"{restore[0]} s a checkpoint, digests {store_digest_s} s (store) and "
+          f"{snapshot_digest_s} s (snapshot)", flush=True)
+    return launches
+
+
 def _flash_tol(dtype, S, torch):
     """K7's (atol, rtol) against its plain version: the reference test's
     2e-6 in float32 up to S = 1,024 (its largest S is 512); beyond, 2e-6
@@ -3028,6 +3296,7 @@ def main():
     phase(27, monitored_workload, torch, smi)
     k32_by_width, k32_upsert, k32_mine = phase(28, keys32_path, torch)
     phase(29, lineage_path, torch, smi)
+    phase(30, chaos_path, torch, smi)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["lanes"] == NODE_SWEEP[2]

@@ -36,6 +36,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.core.compression import check_key_dtype
+from repro_torch.core.counters import widen
 from repro_torch.device import resolve
 from repro_torch.kernels.upsert import fused_upsert, probe_hash
 
@@ -131,6 +132,7 @@ def dict_lookup(d: PatternDictionary, keys: torch.Tensor, valid: torch.Tensor
         d, refcount=refcount, clock=clock, tick=d.tick + 1,
         hits=d.hits + hit.sum(dtype=torch.int32),
         misses=d.misses + (valid & ~hit).sum(dtype=torch.int32))
+    widen(d2, d.sig, ("hits", "misses"), base=d)  # core.counters
     safe = slot.clamp(0, cap - 1).to(torch.int64)
     minus1 = torch.full_like(slot, -1)
 
@@ -163,7 +165,7 @@ def dict_admit(d: PatternDictionary, keys: torch.Tensor, admit: torch.Tensor,
     placed = admit & (slot >= 0)
     new = is_new & admit
     clock = torch.where(evict, torch.zeros_like(d.clock), d.clock)
-    return dataclasses.replace(
+    out = dataclasses.replace(
         d,
         sig=sig,
         psig=_set_at(d.psig, slot, new, psig),
@@ -175,3 +177,4 @@ def dict_admit(d: PatternDictionary, keys: torch.Tensor, admit: torch.Tensor,
         n_entries=d.n_entries - n_evicted + new.sum(dtype=torch.int32),
         evictions=d.evictions + n_evicted,
     )
+    return widen(out, d.sig, ("n_entries", "evictions"), base=d)  # core.counters

@@ -7,6 +7,11 @@ port never imports the reference.  The numpy dtype of a key field selects
 the width: a 4-byte array loads as int32 bits, any other as int64 bits,
 and each comes back as uint32 or uint64.
 
+  * `reference_arrays` / `from_reference_arrays`: the arrays of a store,
+    sketch, dictionary or snapshot as the reference holds them, by field
+    name in field order: key fields unsigned, and each scalar counter at
+    the reference's dtype (`core.counters`: int64 once a sum under x64
+    has updated it).  Reading marks the int64 counters;
   * `store_from_numpy` / `store_to_numpy`: a store's arrays, by field
     name, in both directions (key fields unsigned on the numpy side);
   * `sketch_from_numpy` / `sketch_to_numpy`: the same for a
@@ -38,6 +43,7 @@ import torch
 
 from repro_torch.compress.dictionary import PatternDictionary
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import counters
 from repro_torch.core.buffer import rls_from_numpy
 from repro_torch.core.compression import signed_view, unsigned_view
 from repro_torch.graphstore.store import GraphStore
@@ -50,67 +56,85 @@ KEY_FIELDS = ("node_keys", "edge_keys", "edge_src", "edge_dst", "hh_keys", "node
               "sig", "psig")
 
 
-def _from_numpy(cls, arrays: Mapping[str, np.ndarray], device):
+def from_reference_arrays(cls, arrays: Mapping[str, np.ndarray], device):
     """A `cls` on `device` from numpy arrays keyed by field name: key
     fields as int32 bits where they are 4-byte (uint32), else as int64
-    bits; every other field as int32."""
+    bits; every other field as int32, the scalar counters that arrive
+    as int64 marked so (`core.counters`)."""
+    wide = []
+
     def tensor(name):
         a = np.array(arrays[name])  # a contiguous copy; 0-d stays 0-d
         if name in KEY_FIELDS:
             a = signed_view(a.astype(np.uint32 if a.dtype.itemsize == 4 else np.uint64,
                                      copy=False))
         elif a.dtype != np.int32:
+            if a.ndim == 0 and a.dtype == np.int64:
+                wide.append(name)
             a = a.astype(np.int32)
         return torch.from_numpy(a).to(device)
 
-    return cls(**{f.name: tensor(f.name) for f in dataclasses.fields(cls)})
+    obj = cls(**{f.name: tensor(f.name) for f in dataclasses.fields(cls)})
+    if wide:
+        setattr(obj, counters.ATTR, frozenset(wide))
+    return obj
 
 
-def _to_numpy(obj) -> Dict[str, np.ndarray]:
+def reference_arrays(obj, copy: bool = False) -> Dict[str, np.ndarray]:
+    """`obj`'s arrays as the reference holds them (module docstring).
+    `copy=True` copies every leaf: on the host `.numpy()` would share
+    the live tensor's memory, which the port updates in place."""
+    wide = counters.int64_counters(obj)
     out = {}
     for f in dataclasses.fields(obj):
-        a = getattr(obj, f.name).cpu().numpy()
-        out[f.name] = unsigned_view(a) if f.name in KEY_FIELDS else a
+        t = getattr(obj, f.name).detach()
+        a = (t.clone() if copy and t.device.type == "cpu" else t).cpu().numpy()
+        if f.name in KEY_FIELDS:
+            a = unsigned_view(a)
+        elif f.name in wide:
+            a = a.astype(np.int64)
+        out[f.name] = a
     return out
+
 
 
 def store_from_numpy(arrays: Mapping[str, np.ndarray],
                      device: Union[str, torch.device] = "cuda") -> GraphStore:
     """A port store on `device` from numpy arrays keyed by field name."""
-    return _from_numpy(GraphStore, arrays, device)
+    return from_reference_arrays(GraphStore, arrays, device)
 
 
 def store_to_numpy(store: GraphStore) -> Dict[str, np.ndarray]:
     """The port store's arrays as numpy, key fields unsigned."""
-    return _to_numpy(store)
+    return reference_arrays(store)
 
 
 def sketch_from_numpy(arrays: Mapping[str, np.ndarray],
                       device: Union[str, torch.device] = "cuda") -> GraphSketch:
     """A port sketch on `device` from numpy arrays keyed by field name."""
-    return _from_numpy(GraphSketch, arrays, device)
+    return from_reference_arrays(GraphSketch, arrays, device)
 
 
 def sketch_to_numpy(sketch: GraphSketch) -> Dict[str, np.ndarray]:
     """The port sketch's arrays as numpy, `hh_keys` unsigned."""
-    return _to_numpy(sketch)
+    return reference_arrays(sketch)
 
 
 def snapshot_to_numpy(snap: GraphSnapshot) -> Dict[str, np.ndarray]:
     """The port snapshot's arrays as numpy, `node_key` unsigned."""
-    return _to_numpy(snap)
+    return reference_arrays(snap)
 
 
 def dictionary_from_numpy(arrays: Mapping[str, np.ndarray],
                           device: Union[str, torch.device] = "cuda") -> PatternDictionary:
     """A port pattern dictionary on `device` from numpy arrays keyed by
     field name."""
-    return _from_numpy(PatternDictionary, arrays, device)
+    return from_reference_arrays(PatternDictionary, arrays, device)
 
 
 def dictionary_to_numpy(d: PatternDictionary) -> Dict[str, np.ndarray]:
     """The port dictionary's arrays as numpy, `sig` and `psig` unsigned."""
-    return _to_numpy(d)
+    return reference_arrays(d)
 
 
 def bloom_bitmap_from_numpy(bitmap: np.ndarray,

@@ -76,19 +76,27 @@ def _map_fields(batch, fn):
 
 def _to_host(et):
     """Batch -> numpy leaves (pickle/spill-safe), keys as uint64 or
-    uint32 by their width: the layout of the reference's archive files."""
+    uint32 by their width: the layout of the reference's archive files.
+    Every leaf is a copy, on the host too, where `.numpy()` would share
+    the tensor's memory."""
     def host(name, x):
-        a = x.detach().cpu().numpy()
+        x = x.detach()
+        a = (x.clone() if x.device.type == "cpu" else x).cpu().numpy()
         return unsigned_view(a) if name in _KEY_FIELDS else a
 
     return _map_fields(et, host)
 
 
 def _to_device(et, device: torch.device):
-    """Inverse of `_to_host`: numpy leaves back to tensors on `device`."""
-    def dev(_, a):
+    """Inverse of `_to_host`: numpy leaves back to tensors on `device`.
+    The reference's batches (a checkpoint's host state) hold their scalar
+    counters as int64 under x64: they come back as the port's int32."""
+    def dev(name, a):
         a = signed_view(np.asarray(a))
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if name not in _KEY_FIELDS and a.dtype == np.int64:
+            a = a.astype(np.int32)
+        # a copy: an unpickled array may be read-only
+        return torch.from_numpy(np.array(a)).to(device)
 
     return _map_fields(et, dev)
 

@@ -31,6 +31,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.core.compression import check_key_dtype, flip_sign, mix_keys
+from repro_torch.core.counters import widen
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
@@ -170,6 +171,7 @@ def ingest_step(store: GraphStore, et) -> Tuple[GraphStore, dict]:
 
     store.n_nodes += n_new_nodes
     store.n_edges += n_new_edges
+    widen(store, store.node_keys, ("n_nodes", "n_edges"))  # core.counters
     batch_edges = et.edge_valid.sum(dtype=torch.int32)
     minus1 = torch.full_like(nslot, -1)
     stats = {

@@ -79,12 +79,15 @@ class HealthMonitor:
         self._finished = False
         self._quality: Dict = {}
         self._quality_by_action: Dict = {}
+        self._checkpointing = False
+        self._since_ckpt = 0
 
     # ------------------------------------------------------------------
-    def bind(self, hub, cfg=None) -> "HealthMonitor":
+    def bind(self, hub, cfg=None, checkpoint_every: int = 0) -> "HealthMonitor":
         """Attach to a pipeline's `MetricsHub` (+ its telemetry
         registry).  `cfg` (an `IngestConfig`) seeds `cpu_max` and the
-        default SLO set."""
+        default SLO set; `checkpoint_every` > 0 arms the
+        checkpoint-cadence SLO."""
         from repro_torch.telemetry.spans import SeriesTap
 
         self._hub = hub
@@ -95,7 +98,10 @@ class HealthMonitor:
         if self.slo is None:
             self.slo = SLOTracker(default_slos(
                 cpu_max=self.cpu_max if self.cpu_max is not None else 0.55,
-                theta2=float(getattr(cfg, "theta2", 0.25))))
+                theta2=float(getattr(cfg, "theta2", 0.25)),
+                checkpoint_every=checkpoint_every))
+        if checkpoint_every > 0:
+            self._checkpointing = True
         hub.subscribe(self.on_event)
         return self
 
@@ -143,6 +149,9 @@ class HealthMonitor:
             # lands in the row we just opened)
             a["ingest_lag_ms"] = ev.payload.get("ingest_lag_ms")
             a["queryable_lag_ms"] = ev.payload.get("queryable_lag_ms")
+        elif k == "checkpoint":
+            self._checkpointing = True
+            self._since_ckpt = 0
         elif k == "report":
             # run over: close out the final tick while the hub's state
             # is still live (finish() is idempotent on top of this)
@@ -162,8 +171,7 @@ class HealthMonitor:
             "spill_depth": a["spill_depth"],
             "mu": sum(a["mu"]) / len(a["mu"]) if a["mu"] else None,
             "commit_ms": None, "commit_p99_ms": None, "dict_hit": None,
-            # fed by checkpoints (ROADMAP Slice E.4), which the port has
-            # not yet: detectors and SLOs skip None
+            # fed once a run checkpoints; detectors and SLOs skip None
             "ticks_since_checkpoint": None,
             # None when no lineage tracker is wired: detectors and SLOs
             # skip None, so runs without lineage are unchanged
@@ -177,6 +185,9 @@ class HealthMonitor:
                 values["commit_p99_ms"] = h.percentile_ns(0.99) / 1e6
         if self._dict_seen and a["dict_hit"]:
             values["dict_hit"] = sum(a["dict_hit"]) / len(a["dict_hit"])
+        if self._checkpointing:
+            self._since_ckpt += 1
+            values["ticks_since_checkpoint"] = float(self._since_ckpt)
 
         self.detectors.observe(self.tick, self.t, values)
         if self.slo is not None:

@@ -50,11 +50,15 @@ class SLOSpec:
         raise ValueError(f"SLOSpec.op must be <= or >=, got {self.op!r}")
 
 
-def default_slos(cpu_max: float = 0.55, theta2: float = 0.25) -> List[SLOSpec]:
-    """The stock objectives over the ingest->query path.  The
-    reference's checkpoint-cadence objective comes with checkpoints
-    (ROADMAP Slice E.4)."""
-    return [
+def default_slos(cpu_max: float = 0.55, theta2: float = 0.25,
+                 checkpoint_every: int = 0) -> List[SLOSpec]:
+    """The stock objectives over the ingest->query path.
+
+    `checkpoint_every` > 0 adds the checkpoint-cadence objective
+    (repro_torch.resilience); the metric is only fed on checkpointing
+    runs, so the spec is inert otherwise.
+    """
+    slos = [
         SLOSpec("commit_p99", "commit_p99_ms", "<=", 150.0, budget=0.10,
                 description="per-tick p99 commit latency stays under "
                             "150 ms (JIT warmup rides the budget)"),
@@ -67,8 +71,8 @@ def default_slos(cpu_max: float = 0.55, theta2: float = 0.25) -> List[SLOSpec]:
                 budget=0.10,
                 description="consumer occupancy stays under the "
                             "Algorithm-2 escalation bound"),
-        # the metric is only produced on lineage-tracked runs (not in
-        # the port yet), so the spec is inert otherwise;
+        # the metric is only produced on lineage-tracked runs
+        # (run_scenario(lineage=...)), so the spec is inert otherwise;
         # tighter windows than the latency SLOs — a stalled watermark
         # breaches consecutively, so a store outage should alert while
         # the outage is still in progress, not a long-window later
@@ -79,6 +83,13 @@ def default_slos(cpu_max: float = 0.55, theta2: float = 0.25) -> List[SLOSpec]:
                             "5 s of stream time stale (queryable "
                             "watermark lag; buffering rides the budget)"),
     ]
+    if checkpoint_every > 0:
+        slos.append(SLOSpec(
+            "checkpoint_cadence", "ticks_since_checkpoint", "<=",
+            float(2 * checkpoint_every), budget=0.05,
+            description="a resumable checkpoint is never more than "
+                        "2 intervals stale"))
+    return slos
 
 
 class _SLOState:

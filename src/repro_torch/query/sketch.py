@@ -33,6 +33,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.core import compression as C
+from repro_torch.core.counters import widen
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.kernels.sketch import node_hash, sketch_scatter_ref
@@ -153,9 +154,10 @@ def sketch_update(sketch: GraphSketch, et) -> GraphSketch:
     cand_keys = torch.where(et.node_valid, et.node_ids, torch.zeros_like(et.node_ids))
     cand_cnt = torch.where(et.node_valid, est, torch.full_like(est, -1))
     hh_keys, hh_counts = _merge_top_k(sketch.hh_keys, sketch.hh_counts, cand_keys, cand_cnt)
-    return GraphSketch(edge_w=ew, out_deg=od, in_deg=idg, hh_keys=hh_keys,
-                       hh_counts=hh_counts,
-                       n_updates=sketch.n_updates + cnt.sum(dtype=torch.int32))
+    out = GraphSketch(edge_w=ew, out_deg=od, in_deg=idg, hh_keys=hh_keys,
+                      hh_counts=hh_counts,
+                      n_updates=sketch.n_updates + cnt.sum(dtype=torch.int32))
+    return widen(out, hh_keys, ("n_updates",), base=sketch)  # core.counters
 
 
 # ---------------------------------------------------------------------------

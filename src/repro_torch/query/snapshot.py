@@ -37,6 +37,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.core import compression as C
+from repro_torch.core.counters import widen
 from repro_torch.graphstore.store import CommitDelta, GraphStore
 from repro_torch.telemetry.spans import NULL_REGISTRY
 
@@ -148,7 +149,7 @@ def build_snapshot(store: GraphStore) -> GraphSnapshot:
     rperm = _lex_sort3(dst_idx, src_idx, store.edge_type)
     redge_row = dst_idx[rperm]
     rlive = redge_row < ncap
-    return GraphSnapshot(
+    snap = GraphSnapshot(
         node_key=node_key,
         node_count=node_count,
         node_degree=node_degree,
@@ -165,6 +166,7 @@ def build_snapshot(store: GraphStore) -> GraphSnapshot:
         n_nodes=n_nodes,
         n_edges=indptr[-1],
     )
+    return widen(snap, node_key, ("n_nodes",))  # core.counters
 
 
 def node_index(snap: GraphSnapshot, keys: torch.Tensor
@@ -343,7 +345,7 @@ def apply_delta(snap: GraphSnapshot, delta: CommitDelta
         n_nodes=snap.n_nodes + k_new,
         n_edges=indptr[-1],
     )
-    return out, unplaced
+    return widen(out, node_key, ("n_nodes",)), unplaced  # core.counters
 
 
 class SnapshotMaintainer:

@@ -11,9 +11,9 @@ checkpoints alongside the ingestor, so a resumed run continues the
 fault sequence exactly where the killed run left it).
 
 `PipelineKilled` is the kill signal of the plan's `crash_at_tick`,
-which the reference's checkpoint loop (`drive`) honours; that loop, and
-`run_scenario(..., resume=True)`, come to the port with ROADMAP §1
-Slice E.4, and until then `run_scenario` refuses a plan with a crash.
+which the checkpoint loop (`repro_torch.resilience.drive`) honours: a
+run killed so resumes from its latest checkpoint through
+`run_scenario(..., resume=True)`.
 """
 from __future__ import annotations
 

@@ -12,12 +12,10 @@ The port runs one shard or several (`ShardedPipeline`), optionally
 sketch-guided and with dictionary compression, with span telemetry and
 the controller audit trail (`telemetry`, and the `trace` and
 `trace_jsonl` exporters), the health monitor (`monitor`), batch lineage
-and its watermarks (`lineage`, `lineage_jsonl`), and injected commit
-faults with backoff-governed retry (`fault_plan`, `retry`).  The
-reference's checkpoints (`checkpoint_dir`, `resume`) and its fault
-plans' crash-at-tick kill raise `NotImplementedError` until ROADMAP §1
-Slice E.4 brings them, and with them the store and snapshot digests,
-which stay empty here.  The
+and its watermarks (`lineage`, `lineage_jsonl`), injected commit faults
+with backoff-governed retry (`fault_plan`, `retry`), and step-atomic
+checkpoints with kill and resume (`checkpoint_dir`, `resume`, a plan's
+`crash_at_tick`).  It takes every option of the reference's, and the
 report keeps every field of the reference's.
 """
 from __future__ import annotations
@@ -34,6 +32,8 @@ from repro_torch.configs.paper_ingest import IngestConfig
 from repro_torch.device import resolve
 from repro_torch.lineage import LineageTracker, flow_events, write_lineage_jsonl
 from repro_torch.monitor import HealthMonitor, default_slos
+from repro_torch.query.snapshot import build_snapshot
+from repro_torch.resilience import PipelineCheckpointer, drive, pytree_digest
 from repro_torch.telemetry import TelemetryRegistry, write_chrome_trace, write_jsonl
 from repro_torch.workloads.scenarios import Scenario, get_scenario
 from repro_torch.workloads.source import ScenarioSource
@@ -73,8 +73,7 @@ class WorkloadReport:
     pattern_refs: int = 0        # total (pattern_id, bindings) references
     dict_hit_rate: float = 0.0   # dictionary hit rate over the whole run
     commit_ms_mean: float = 0.0  # mean successful-commit latency (ms)
-    # resilience path (inert defaults when off; the checkpoint fields and
-    # the digests stay so until ROADMAP §1 Slice E.4)
+    # resilience path (inert defaults when off)
     commit_failures: int = 0     # failed commit attempts (injected or real)
     retries_replayed: int = 0    # archived batches successfully re-committed
     archived_total: int = 0      # batches ever archived (no-batch-lost LHS)
@@ -82,9 +81,9 @@ class WorkloadReport:
     pool_overflows: int = 0      # pool-cap diversions to the archive
     degraded_events: int = 0     # ticks served in degraded (store-down) mode
     checkpoints_saved: int = 0
-    resumed_from_tick: int = -1
-    store_digest: str = ""
-    snapshot_digest: str = ""
+    resumed_from_tick: int = -1  # -1 = fresh run (not resumed)
+    store_digest: str = ""       # pytree sha256 of the final GraphStore
+    snapshot_digest: str = ""    # pytree sha256 of build_snapshot(store)
     # telemetry (empty when the registry is off)
     telemetry_enabled: bool = False
     # per-stage latency breakdown, aggregated across shards:
@@ -200,19 +199,6 @@ def _timeline(samples: Dict, actions: List[str], shard: int) -> List[Dict]:
     return out
 
 
-def _unsupported(checkpoint_dir, resume, fault_plan) -> None:
-    """Raise for the reference's options the port does not have yet: its
-    checkpoint loop (`repro.resilience.drive`) saves checkpoints and
-    honours a fault plan's `crash_at_tick`."""
-    later = {"checkpoint_dir": checkpoint_dir, "resume": resume,
-             "fault_plan.crash_at_tick": getattr(fault_plan, "crash_at_tick", None)}
-    asked = [k for k, v in later.items() if v not in (None, False)]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: checkpoint, resume and the crash-at-tick kill "
-            f"come to the port with ROADMAP §1 Slice E.4")
-
-
 class _Tally:
     """Commit-event counts the report reads: dropped inserts,
     dictionary references, and the hit rate summed over commits."""
@@ -241,12 +227,14 @@ def scenario_builder(
     node_cap: Optional[int] = None,
     edge_cap: Optional[int] = None,
     shards: int = 1,
+    spill_dir: Optional[str] = None,
     device: Union[str, torch.device, None] = None,
 ):
     """The pipeline `run_scenario` drives, not yet built: returns
     (builder, source, tally), the tally counting the commit events the
     report reads.  A caller may add to the builder (metrics, event
-    handlers) before `build()`."""
+    handlers) before `build()`.  Without `spill_dir` each controller
+    spills into a fresh temporary directory of its own."""
     dev = resolve(device)
     cfg = IngestConfig(
         mean_rate=scn.base_rate,
@@ -259,6 +247,8 @@ def scenario_builder(
          .with_source(src)
          .simulated_consumer(speed=speed)
          .on_event(tally))
+    if spill_dir is not None:
+        b = b.spill_dir(spill_dir)
     if sketch_guided:
         b = b.sketch_guided()
     if dict_compress:
@@ -281,6 +271,7 @@ def run_scenario(
     dict_capacity: int = 4096,
     node_cap: Optional[int] = None,
     edge_cap: Optional[int] = None,
+    spill_dir: Optional[str] = None,
     on_event=None,
     telemetry=None,
     monitor=None,
@@ -291,6 +282,8 @@ def run_scenario(
     fault_plan=None,
     retry=None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 16,
+    checkpoint_keep: int = 3,
     resume: bool = False,
     device: Union[str, torch.device, None] = None,
 ) -> WorkloadReport:
@@ -302,7 +295,9 @@ def run_scenario(
     `node_cap`/`edge_cap` shrink the store; `shards` > 1 partitions the
     stream by user over that many controllers (`ShardedPipeline`);
     `dict_compress` turns on the GraphZip dictionary-compression path
-    (`with_compression`).
+    (`with_compression`); `spill_dir` is where the controller spills
+    (default: a fresh temporary directory) and, as `<spill_dir>_archive`,
+    where the retry archive overflows.
 
     `telemetry` turns on span telemetry + the controller audit trail
     (pass True, or a `repro_torch.telemetry.TelemetryRegistry` to keep
@@ -329,23 +324,26 @@ def run_scenario(
     the Chrome trace gains per-batch flow events; `lineage_jsonl`
     writes the sampled hop logs (implies lineage).
 
-    `fault_plan` (a `repro_torch.resilience.FaultPlan`) injects commit
-    faults; it arms the default `RetryPolicy` unless `retry` overrides
-    (pass a policy to customise, `False` to disable).  The report then
-    carries the retry and archive accounting.
-
-    `checkpoint_dir`, `resume` and a plan's `crash_at_tick` raise
-    `NotImplementedError` (module docstring)."""
+    Resilience (repro_torch.resilience): `fault_plan` injects commit
+    faults (and, through `crash_at_tick`, raises `PipelineKilled`
+    mid-run); it arms the default `RetryPolicy` unless `retry`
+    overrides (pass a policy to customise, `False` to disable).
+    `checkpoint_dir` turns on periodic step-atomic checkpoints every
+    `checkpoint_every` ticks, keeping the last `checkpoint_keep`;
+    `resume=True` restores the latest one (same scenario, seed and
+    shards enforced) and runs only the remaining ticks, bit-exact
+    against an uninterrupted run.  With any of these active the report
+    carries the retry and archive accounting and the store and snapshot
+    digests."""
     if shards < 1:
         raise ValueError("shards must be >= 1")
-    _unsupported(checkpoint_dir, resume, fault_plan)
     scn = get_scenario(scenario) if isinstance(scenario, str) else scenario
     ticks = int(ticks if ticks is not None else scn.ticks)
     b, src, tally = scenario_builder(
         scn, seed=seed, speed=speed, rate_scale=rate_scale,
         sketch_guided=sketch_guided, dict_compress=dict_compress,
         dict_capacity=dict_capacity, node_cap=node_cap, edge_cap=edge_cap,
-        shards=shards, device=device)
+        shards=shards, spill_dir=spill_dir, device=device)
     reg = None
     if telemetry or trace or trace_jsonl or monitor:
         reg = telemetry if isinstance(telemetry, TelemetryRegistry) \
@@ -354,8 +352,9 @@ def run_scenario(
     mon = None
     if monitor:
         mon = monitor if isinstance(monitor, HealthMonitor) \
-            else HealthMonitor(slos=default_slos(cpu_max=b.cfg.cpu_max,
-                                                 theta2=b.cfg.theta2))
+            else HealthMonitor(slos=default_slos(
+                cpu_max=b.cfg.cpu_max, theta2=b.cfg.theta2,
+                checkpoint_every=checkpoint_every if checkpoint_dir is not None else 0))
         b = b.with_monitor(mon)
     trk = None
     if lineage or lineage_jsonl:
@@ -366,11 +365,37 @@ def run_scenario(
         b = b.with_faults(fault_plan)
     if retry is not False and (retry is not None or fault_plan is not None):
         # a fault plan arms the default policy unless retry=False
-        b = b.with_retry(retry if retry not in (None, True) else None)
+        b = b.with_retry(retry if retry not in (None, True) else None,
+                         archive_dir=f"{spill_dir}_archive" if spill_dir is not None else None)
     if on_event is not None:
         b = b.on_event(on_event)
     pipe = b.build()
-    rep = pipe.run(max_ticks=ticks)
+
+    resilient = (fault_plan is not None or checkpoint_dir is not None
+                 or (retry is not None and retry is not False))
+    ckpt = None
+    ckpt_extra = {"scenario": scn.name, "seed": seed, "shards": shards}
+    if checkpoint_dir is not None:
+        ckpt = PipelineCheckpointer(checkpoint_dir, keep=checkpoint_keep,
+                                    every=checkpoint_every, telemetry=reg)
+    start_tick = 0
+    if resume:
+        if ckpt is None:
+            raise ValueError("resume=True needs checkpoint_dir")
+        manifest = ckpt.restore(pipe, src, expect=ckpt_extra)
+        start_tick = int(manifest["step"])
+
+    if ckpt is not None or fault_plan is not None:
+        stream = drive(src.ticks(), pipe, src, checkpointer=ckpt,
+                       fault_plan=fault_plan, start_tick=start_tick,
+                       extra=ckpt_extra)
+        try:
+            rep = pipe.run(stream, max_ticks=max(ticks - start_tick, 0))
+        finally:
+            if ckpt is not None:
+                ckpt.wait()
+    else:
+        rep = pipe.run(max_ticks=ticks)
 
     if shards > 1:
         sub = rep.shards
@@ -393,6 +418,10 @@ def run_scenario(
         counts[a] = counts.get(a, 0) + 1
     ingestor = pipe.sink.ingestor
     commit_ms = [1e3 * c.busy_s for c in ingestor.commits if c.ok]
+    store_digest = snapshot_digest = ""
+    if resilient:
+        store_digest = pytree_digest(pipe.store)
+        snapshot_digest = pytree_digest(build_snapshot(pipe.store))
     mon_report: Dict = {}
     if mon is not None:
         # finish BEFORE the exporters run, so that every audit record
@@ -465,6 +494,10 @@ def run_scenario(
         archive_remaining=ingestor.archive_depth,
         pool_overflows=ingestor.pool_overflows,
         degraded_events=int(pipe.metrics.counters["degraded"]),
+        checkpoints_saved=ckpt.saves if ckpt is not None else 0,
+        resumed_from_tick=start_tick if resume else -1,
+        store_digest=store_digest,
+        snapshot_digest=snapshot_digest,
         telemetry_enabled=reg is not None,
         stage_latency_ms=stage_latency,
         audit_decisions=len(reg.audit) if reg is not None else 0,

@@ -3,8 +3,9 @@
   * Importing every `repro_torch` module loads neither `jax` nor the
     reference package `repro` (checked in a fresh interpreter; the walk
     includes the ops layer: `telemetry.audit`, `telemetry.export`, the
-    `monitor`, `lineage` and `resilience` packages and
-    `launch.telemetry`/`launch.monitor`/`launch.lineage`), and no
+    `monitor`, `lineage` and `resilience` packages, `resilience.checkpoint`
+    and `launch.telemetry`/`launch.monitor`/`launch.lineage`/
+    `launch.chaos`), and no
     source file under `src/repro_torch` imports either.
   * Entry points default to the card: without one, a run that did not
     ask for the CPU raises instead of carrying on on the host.
@@ -37,7 +38,8 @@ ops = {"repro_torch.telemetry.audit", "repro_torch.telemetry.export", "repro_tor
        "repro_torch.launch.telemetry", "repro_torch.launch.monitor",
        "repro_torch.lineage", "repro_torch.lineage.tracker", "repro_torch.lineage.export",
        "repro_torch.resilience", "repro_torch.resilience.retry",
-       "repro_torch.resilience.faults", "repro_torch.launch.lineage"}
+       "repro_torch.resilience.faults", "repro_torch.launch.lineage",
+       "repro_torch.resilience.checkpoint", "repro_torch.launch.chaos"}
 assert ops <= set(names), sorted(ops - set(names))
 print(len(names), bad)
 """
@@ -118,6 +120,17 @@ def test_ops_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch, tm
     assert rep.monitor_enabled == (name in ("monitor", "lineage"))
     assert rep.lineage_enabled == (name == "lineage")
     assert "dryrun ok" in capsys.readouterr().out
+
+
+def test_chaos_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch, tmp_path, capsys):
+    from repro_torch.launch import chaos
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos.main(["--dryrun", "--dir", str(tmp_path / "card")])
+    code, verdict = chaos.run(["--dryrun", "--device", "cpu", "--dir", str(tmp_path / "host")])
+    assert code == 0 and verdict["ok"] and verdict["resumed_from"] == 24
+    assert capsys.readouterr().out.endswith("chaos ok\n")
 
 
 def test_serve_launch_without_a_card_fails_unless_cpu_is_asked_for(monkeypatch):

@@ -644,15 +644,15 @@ def dryrun(tmp_path_factory):
 # report fields that a wall clock or the monitor's wall-clock series set
 WALL_REPORT = WALL_FIELDS + ("stage_latency_ms", "health_events", "slo_summary",
                              "slo_breaches", "slo_alerts", "controller_score",
-                             "decision_quality", "store_digest", "snapshot_digest")
+                             "decision_quality")
 
 
 @pytest.mark.parametrize("which", ["run", "rep"])
 def test_dryrun_report_matches_reference(dryrun, which):
-    """Every field but the wall-clock ones; the store and snapshot
-    digests stay empty in the port until the checkpoint slice brings
-    `pytree_digest`; the detector events and SLOs but the wall-clock
-    ones; the controller score within F2's printed tolerance."""
+    """Every field but the wall-clock ones, the store and snapshot digests
+    included (the run is resilient, so both packages fill them); the
+    detector events and SLOs but the wall-clock ones; the controller
+    score within F2's printed tolerance."""
     rep, want = dryrun[which], dryrun["ref"]["report"]
     g, w = rep.to_dict(), want.to_dict()
     for k in WALL_REPORT:
@@ -662,7 +662,8 @@ def test_dryrun_report_matches_reference(dryrun, which):
     assert rep.commit_failures > 0 and rep.retries_replayed == rep.archived_total > 0
     assert rep.records_in == rep.records_committed + rep.records_dropped + rep.records_in_flight
     assert not rep.conservation_warning and rep.watermark_final["queryable"] is not None
-    assert (rep.store_digest, rep.snapshot_digest) == ("", "") and want.store_digest
+    assert (rep.store_digest, rep.snapshot_digest) == (want.store_digest, want.snapshot_digest)
+    assert rep.store_digest and rep.snapshot_digest
     assert _steady_events(rep.health_events) == _steady_events(want.health_events)
     for name, s in rep.slo_summary.items():
         if name not in WALL_SLOS:
@@ -778,12 +779,14 @@ def test_dryrun_cli_prints_the_reference_output(dryrun):
 
 
 def test_crash_at_tick_waits_for_the_checkpoint_slice():
-    """A plan's `crash_at_tick` is the checkpoint loop's to honour: the
-    port refuses it, naming Slice E.4, rather than run on past it."""
+    """A plan's `crash_at_tick` is the checkpoint loop's to honour: the run
+    is killed with `PipelineKilled` once that tick is processed, rather
+    than running on past it (the resume is in test_torch_checkpoint.py)."""
     plan = R.FaultPlan(fail_times=((2.0, 4.0),), crash_at_tick=6)
-    with pytest.raises(NotImplementedError, match="Slice E.4"):
+    with pytest.raises(R.PipelineKilled) as killed:
         harness.run_scenario(SCENARIO, ticks=20, device="cpu", lineage=True, fault_plan=plan,
                              **CAPS)
+    assert killed.value.tick == 6
     rep = harness.run_scenario(SCENARIO, ticks=8, device="cpu", **CAPS,
                                fault_plan=plan.without_crash())
     assert rep.commit_failures > 0

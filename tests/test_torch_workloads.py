@@ -53,11 +53,17 @@ WALL_FIELDS = ("wall_s", "records_per_wall_s", "commit_ms_mean")
 class ReplayController(BufferController):
     """Takes the reference's decisions, tick by tick, in place of its own.
     The audit trail records the controller's own decision first, so the
-    open record is rewritten to the one taken."""
+    open record is rewritten to the one taken.  A restored controller
+    (a resumed run) skips the decisions its state has taken already."""
 
     def __init__(self, cfg, decisions, **kw):
         super().__init__(cfg, **kw)
         self._decisions = iter(decisions)
+
+    def restore_state(self, s):
+        super().restore_state(s)
+        for _ in range(sum(s["decision_counts"].values())):
+            next(self._decisions)
 
     def decide(self, edge_table_size, density, now=None):
         dec = super().decide(edge_table_size, density, now)
@@ -70,20 +76,32 @@ class ReplayController(BufferController):
 
 
 class ReplaySource:
-    """Yields recorded ticks (copies, so a run cannot alter them)."""
+    """Yields recorded ticks (copies, so a run cannot alter them).  Its
+    cursor is the stream time of the last tick yielded, so it restores
+    from its own `state()` or from a `ScenarioSource`'s of either
+    package (a resumed run)."""
 
     def __init__(self, ticks, dt=1.0):
         self._ticks, self.dt = ticks, dt
+        self._next = 0
 
     def ticks(self):
-        for t, records in self._ticks:
+        while self._next < len(self._ticks):
+            t, records = self._ticks[self._next]
+            self._next += 1
             yield StreamTick(t, copy.deepcopy(records))
 
+    def state(self):
+        return {"t": self._ticks[self._next - 1][0] if self._next else 0.0}
 
-def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False, **options):
-    """The reference's `run_scenario` (`options` passed on), recording
-    its ticks, each shard's (action, beta, reason) decisions, the
-    built pipeline, its store and its dictionary."""
+    def restore_state(self, s):
+        self._next = sum(1 for t, _ in self._ticks if t <= s["t"])
+
+
+def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False, ticks=TICKS, **options):
+    """The reference's `run_scenario` over `ticks` (`options` passed on),
+    recording its ticks, each shard's (action, beta, reason) decisions,
+    the built pipeline, its store and its dictionary."""
     rec = {"ticks": [], "decisions": [[] for _ in range(shards)]}
 
     class RecordingSource(RefScenarioSource):
@@ -106,7 +124,7 @@ def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False, **options)
         mp.setattr(ref_harness, "PipelineBuilder", RecordingBuilder)
         with jax.enable_x64(True):
             rec["report"] = ref_harness.run_scenario(
-                SCENARIO, ticks=TICKS, seed=SEED, dict_compress=dict_compress, shards=shards,
+                SCENARIO, ticks=ticks, seed=SEED, dict_compress=dict_compress, shards=shards,
                 sketch_guided=sketch_guided,
                 spill_dir=str(tmp / f"ref_{dict_compress}_{shards}"), **CAPS, **options)
             store = rec["pipe"].store
@@ -248,32 +266,35 @@ def test_sharded_run_scenario_under_replay_matches_reference(tmp_path_factory, m
         np.testing.assert_array_equal(store[name], arr.astype(store[name].dtype), err_msg=name)
 
 
-@pytest.mark.parametrize("option", [dict(checkpoint_dir="ckpt"), dict(resume=True)])
-def test_options_of_later_slices_raise(option):
-    with pytest.raises(NotImplementedError, match="Slice E.4"):
-        harness.run_scenario(SCENARIO, ticks=2, device="cpu", **option)
-
-
 @pytest.mark.parametrize("option", ["telemetry", "monitor", "trace", "trace_jsonl", "lineage",
-                                    "lineage_jsonl", "fault_plan", "retry"])
+                                    "lineage_jsonl", "fault_plan", "retry", "checkpoint_dir",
+                                    "resume"])
 def test_options_of_this_slice_run_and_fill_the_report(option, tmp_path):
     """The ops layer's options run on the host (the whole comparison with
-    the reference is in test_torch_telemetry.py, test_torch_monitor.py
-    and test_torch_lineage.py).  telemetry, monitor, trace and
-    trace_jsonl each turn telemetry on, and the report carries the stage
-    latencies and one audit record a decision; the monitor adds its
-    verdict, and the exporters their files.  lineage and lineage_jsonl
-    fill the report's lineage fields, the JSONL its hop logs; a fault
-    plan (arming the default retry policy) and a retry policy alone fill
-    the retry and archive accounting."""
+    the reference is in test_torch_telemetry.py, test_torch_monitor.py,
+    test_torch_lineage.py and test_torch_checkpoint.py).  telemetry,
+    monitor, trace and trace_jsonl each turn telemetry on, and the report
+    carries the stage latencies and one audit record a decision; the
+    monitor adds its verdict, and the exporters their files.  lineage and
+    lineage_jsonl fill the report's lineage fields, the JSONL its hop
+    logs; a fault plan (arming the default retry policy) and a retry
+    policy alone fill the retry and archive accounting; a checkpoint
+    directory fills the checkpoint count and the digests.  `resume`
+    without a checkpoint directory is refused, as in the reference."""
     from repro_torch.resilience import FaultPlan, RetryPolicy
 
+    if option == "resume":
+        with pytest.raises(ValueError, match="checkpoint_dir"):
+            harness.run_scenario(SCENARIO, ticks=2, device="cpu", resume=True, **CAPS)
+        return
     value = {"telemetry": True, "monitor": True, "trace": str(tmp_path / "t.json"),
              "trace_jsonl": str(tmp_path / "t.jsonl"), "lineage": True,
              "lineage_jsonl": str(tmp_path / "l.jsonl"),
              "fault_plan": FaultPlan(fail_times=((2.0, 4.0),)),
-             "retry": RetryPolicy(jitter=0.0)}[option]
-    rep = harness.run_scenario(SCENARIO, ticks=8, device="cpu", **CAPS, **{option: value})
+             "retry": RetryPolicy(jitter=0.0), "checkpoint_dir": str(tmp_path / "ck")}[option]
+    cadence = {"checkpoint_every": 4} if option == "checkpoint_dir" else {}
+    rep = harness.run_scenario(SCENARIO, ticks=8, device="cpu", **CAPS, **cadence,
+                               **{option: value})
     traced = option in ("telemetry", "monitor", "trace", "trace_jsonl")
     assert rep.telemetry_enabled == traced
     assert rep.monitor_enabled == (option == "monitor")
@@ -300,3 +321,7 @@ def test_options_of_this_slice_run_and_fill_the_report(option, tmp_path):
         assert rep.archived_total == rep.retries_replayed + rep.archive_remaining
     if option == "retry":
         assert rep.commit_failures == rep.archived_total == 0
+    resilient = option in ("fault_plan", "retry", "checkpoint_dir")
+    assert bool(rep.store_digest) == bool(rep.snapshot_digest) == resilient
+    assert rep.checkpoints_saved == (2 if option == "checkpoint_dir" else 0)
+    assert rep.resumed_from_tick == -1
