@@ -215,6 +215,23 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      run's, K3 and K5 launched; prints the launches, a checkpoint's
      bytes, the capture's ms, the write's and the restore's seconds and
      the digests' seconds.
+ 31. drives phase 30's deployment (`flash_crowd`, 120 ticks, a store
+     outage over 30:45, a checkpoint every 16 ticks, a kill at 60,
+     2^20/2^21) through `run_scenario(key_dtype=torch.int32)` on the
+     card with the sketch-guided GraphZip path and lineage on,
+     uninterrupted, killed and resumed, counters set to 0 just before
+     the three runs and read just after: requires the resume from 48 on
+     the uninterrupted run's digests, 32-bit keys in every pipeline and
+     checkpoint (int32 counters), K1's and K5's 32-bit instances, K3 and
+     K4 launched and the 64-bit instances never, K1 three launches a
+     commit that reached the store (two for the store, one for the
+     dictionary's admission; replays included), K3 one and K4 one a
+     block a tick; resumes the card's 32-bit
+     step 48 on the host onto the card's digests (the card's decisions
+     replayed only if one differs); requires a small 64-bit pipeline to
+     refuse that checkpoint; prints wall ms a tick, records a wall second, a
+     checkpoint's bytes, the capture's and write's ms and the launches
+     by kernel.
 The profiled phases (3, 7, 11, 17 and 26) record device activity only.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
@@ -2825,6 +2842,149 @@ def chaos_path(torch, smi):
     return launches
 
 
+# Phase 31: phase 30's deployment (flash_crowd, 120 ticks, seed 0, a store
+# outage over 30:45, the default RetryPolicy, a checkpoint every 16, a kill
+# at 60, a 2^20-node, 2^21-edge store) through run_scenario at 32-bit keys,
+# with the sketch-guided GraphZip path and lineage on
+SCN32_OPTIONS = dict(sketch_guided=True, dict_compress=True, lineage=True)
+K32_ENTRIES = ("fused_upsert32", "pattern_mine32", "sketch_scatter", "traffic_ids")
+K64_ENTRIES = ("fused_upsert", "pattern_mine")
+
+
+def scenario32_path(torch, smi):
+    """Phase 31: `run_scenario(key_dtype=torch.int32)` on the card,
+    uninterrupted and killed and resumed, the card's 32-bit checkpoint
+    resumed on the host, and a restore at 64-bit keys refused."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.resilience import FaultPlan, PipelineKilled, RetryPolicy
+    from repro_torch.telemetry import TelemetryRegistry
+    from repro_torch.workloads import harness
+
+    d = CHAOS_DEFAULTS
+    plan = FaultPlan(fail_times=(d["outage"],), crash_at_tick=d["crash_at"])
+    kw = dict(ticks=d["ticks"], seed=d["seed"], retry=RetryPolicy(),
+              checkpoint_every=d["every"], key_dtype=torch.int32, **SCN32_OPTIONS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = os.path.join(tmp, "ck")
+        regs = TelemetryRegistry(), TelemetryRegistry()
+        build.launches.clear()
+        with _chaos_watch() as card:
+            t0 = time.perf_counter()
+            ref = harness.run_scenario(d["scenario"], fault_plan=plan.without_crash(),
+                                       spill_dir=os.path.join(tmp, "ref"), device="cuda", **kw)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            try:
+                harness.run_scenario(d["scenario"], fault_plan=plan, checkpoint_dir=ckdir,
+                                     telemetry=regs[0], spill_dir=os.path.join(tmp, "chaos"),
+                                     device="cuda", **kw)
+                raise AssertionError("scenario32 path: crash_at_tick never fired")
+            except PipelineKilled as killed:
+                killed_at = killed.tick
+            res = harness.run_scenario(d["scenario"], fault_plan=plan.without_crash(),
+                                       checkpoint_dir=ckdir, resume=True, telemetry=regs[1],
+                                       spill_dir=os.path.join(tmp, "chaos"), device="cuda",
+                                       **kw)
+        torch.cuda.synchronize()
+        launches = dict(build.launches)
+        stored = sum(s[0] for s in card["stored"])
+        k4_want = sum(-(-n // SAMPLER_BLOCK) for counts in card["ticks"] for n in counts)
+        kept = os.path.join(card["kept"][0], f"step_{d['resumed_from']:08d}")
+        with open(os.path.join(kept, "manifest.json")) as f:
+            leaves = {leaf["key"]: leaf for leaf in json.load(f)["leaves"]}
+        checks = {
+            "killed at 60, resumed from 48": (killed_at, res.resumed_from_tick)
+            == (d["crash_at"], d["resumed_from"]),
+            "digests": (res.store_digest, res.snapshot_digest)
+            == (ref.store_digest, ref.snapshot_digest) and bool(ref.store_digest),
+            "records": res.total_records == ref.total_records > 0,
+            "outage bit": ref.commit_failures > 0,
+            "32-bit pipelines": len(card["pipes"]) == 3 and all(
+                p.store.node_keys.dtype == p.sink.sketch.hh_keys.dtype == torch.int32
+                for p in card["pipes"]),
+            "32-bit leaves": leaves["store.0"]["dtype"] == "uint32" and all(
+                leaf["dtype"] == "int32" for leaf in leaves.values() if leaf["shape"] == []),
+            "32-bit instances ran": all(launches.get(k, 0) > 0 for k in K32_ENTRIES),
+            "no 64-bit instance": all(launches.get(k, 0) == 0 for k in K64_ENTRIES),
+            "K1 three a stored commit": launches.get("fused_upsert32", 0) == 3 * stored > 0,
+            "K3 one a stored commit": launches.get("sketch_scatter", 0) == stored,
+            "K4 one a block a tick": launches.get("traffic_ids", 0) == k4_want,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"scenario32 path: {checks}; launches {launches}, stored "
+                                 f"{stored}, K4 wanted {k4_want}")
+        step_bytes = _dir_bytes(kept)
+
+        # ---- the card's 32-bit step 48, resumed on the host --------------
+        def host_resume(name, decisions=None):
+            ckpt = shutil.copytree(card["kept"][0], os.path.join(tmp, name))
+            with _chaos_watch(decisions) as host:
+                rep = harness.run_scenario(d["scenario"], fault_plan=plan.without_crash(),
+                                           checkpoint_dir=ckpt, resume=True, device="cpu",
+                                           spill_dir=os.path.join(tmp, f"{name}_spill"), **kw)
+            return rep, host["decisions"][0]
+
+        t0 = time.perf_counter()
+        host, taken = host_resume("host")
+        replayed = taken != card["decisions"][2]
+        if replayed:
+            host, taken = host_resume("host_replayed", card["decisions"][2])
+        host_s = time.perf_counter() - t0
+        if (host.store_digest, host.snapshot_digest) != (ref.store_digest, ref.snapshot_digest) \
+                or host.total_records != ref.total_records:
+            raise AssertionError(f"scenario32 path: the host's resume of the card's step "
+                                 f"{d['resumed_from']} gives {host.store_digest[:16]}, "
+                                 f"{host.snapshot_digest[:16]} against the card's "
+                                 f"{ref.store_digest[:16]}, {ref.snapshot_digest[:16]} "
+                                 f"(decisions replayed: {replayed})")
+
+        # ---- the same checkpoint refused at 64-bit keys -------------------
+        # the refusal reads the first key leaf before any device work, so a
+        # small 64-bit pipeline shows it; the restore writes nothing
+        try:
+            harness.run_scenario(d["scenario"], checkpoint_dir=card["kept"][0], resume=True,
+                                 spill_dir=os.path.join(tmp, "wide_spill"), device="cuda",
+                                 node_cap=1 << 10, edge_cap=1 << 12,
+                                 **dict(kw, key_dtype=torch.int64))
+            raise AssertionError("scenario32 path: a 64-bit pipeline restored 32-bit keys")
+        except ValueError as refused:
+            if "32-bit keys" not in str(refused) or "64-bit keys" not in str(refused):
+                raise
+            refusal = str(refused)
+
+    capture = [s * 1e3 for r in regs for s in _span_seconds(r, "checkpoint.capture")]
+    write = [s * 1e3 for r in regs for s in _span_seconds(r, "checkpoint.write")]
+    restore = [s * 1e3 for s in _span_seconds(regs[1], "checkpoint.restore")]
+    wall_ms = 1e3 * ref.wall_s / ref.ticks
+    print("scenario32 path: " + json.dumps({
+        "card": smi, "deployment": dict(d, **SCN32_OPTIONS, key_bits=32),
+        "uninterrupted_s": ref_s, "wall_ms_per_tick": wall_ms,
+        "records_per_wall_s": ref.records_per_wall_s, "records": ref.total_records,
+        "commit_failures": ref.commit_failures, "pattern_refs": ref.pattern_refs,
+        "dict_hit_rate": ref.dict_hit_rate, "commits_stored": stored,
+        "launches": {k: launches.get(k, 0) for k in K32_ENTRIES + K64_ENTRIES},
+        "k4_launches_wanted": k4_want, "checkpoint_bytes_step48": step_bytes,
+        "checkpoint_capture_ms": capture, "checkpoint_write_ms": write,
+        "checkpoint_restore_ms": restore, "host_resume_s": host_s,
+        "host_decided_alike": not replayed, "refused": refusal}), flush=True)
+    print(f"scenario32 path on {smi}: 32-bit keys, killed at {killed_at} and resumed from "
+          f"{res.resumed_from_tick} onto the uninterrupted run's digests; {wall_ms} ms a tick "
+          f"and {ref.records_per_wall_s} records a wall s uninterrupted; K1 (32-bit) "
+          f"{launches.get('fused_upsert32', 0)} for {stored} stored commits, K5 (32-bit) "
+          f"{launches.get('pattern_mine32', 0)}, K3 {launches.get('sketch_scatter', 0)}, K4 "
+          f"{launches.get('traffic_ids', 0)} for {k4_want} blocks, the 64-bit instances 0; "
+          f"the step-48 checkpoint ({step_bytes} bytes) resumed on the host onto the card's "
+          f"digests" + (" under the card's decisions" if replayed else ", deciding for itself")
+          + f" ({host_s} s) and was refused at 64-bit keys; capture "
+          f"{statistics.mean(capture)} ms, write {statistics.mean(write)} ms a checkpoint",
+          flush=True)
+    return launches
+
+
 def _flash_tol(dtype, S, torch):
     """K7's (atol, rtol) against its plain version: the reference test's
     2e-6 in float32 up to S = 1,024 (its largest S is 512); beyond, 2e-6
@@ -3297,6 +3457,7 @@ def main():
     k32_by_width, k32_upsert, k32_mine = phase(28, keys32_path, torch)
     phase(29, lineage_path, torch, smi)
     phase(30, chaos_path, torch, smi)
+    scn32_launches = phase(31, scenario32_path, torch, smi)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["lanes"] == NODE_SWEEP[2]
@@ -3457,6 +3618,7 @@ def main():
         "source": "src/repro_torch/kernels/csrc/fused_upsert.cu",
         "replaces": "src/repro/kernels/upsert.py:104", "path": k32_path,
         "launches": k32_by_width["fused_upsert32"], "matched": True,
+        "launches_scenario32": scn32_launches.get("fused_upsert32", 0),
         "max_abs_err": max(r["max_abs_err"] for r in k32_upsert),
         "ms": uref["ms"], "plain_ms": uref["plain_ms"], "bound_ms": uref["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "ms_64": u64["ms"],
@@ -3468,6 +3630,7 @@ def main():
         "source": "src/repro_torch/kernels/csrc/pattern_mine.cu",
         "replaces": "src/repro/kernels/pattern_mine.py:174", "path": k32_path,
         "launches": k32_by_width["pattern_mine32"], "matched": True,
+        "launches_scenario32": scn32_launches.get("pattern_mine32", 0),
         "max_abs_err": max(r["max_abs_err"] for r in k32_mine),
         "ms": m32["ms"], "plain_ms": m32["plain_ms"], "bound_ms": m32["bound_ms"],
         "bound_by": m32["bound_by"], "library_ms": None, "ms_64": m32["ms_64"],

@@ -36,7 +36,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.core.compression import check_key_dtype
-from repro_torch.core.counters import widen
+from repro_torch.core.counters import sum_dtype, widen
 from repro_torch.device import resolve
 from repro_torch.kernels.upsert import fused_upsert, probe_hash
 
@@ -56,9 +56,9 @@ class PatternDictionary:
     clock: torch.Tensor      # (C,) int32 dictionary tick of last touch (LRU)
     tick: torch.Tensor       # 0-d int32, advances once per lookup batch
     n_entries: torch.Tensor  # 0-d int32 live entries
-    hits: torch.Tensor       # 0-d int32 cumulative reference hits
-    misses: torch.Tensor     # 0-d int32 cumulative lookup misses
-    evictions: torch.Tensor  # 0-d int32 cumulative aged-out entries
+    hits: torch.Tensor       # 0-d cumulative reference hits (core.counters)
+    misses: torch.Tensor     # 0-d cumulative lookup misses (core.counters)
+    evictions: torch.Tensor  # 0-d cumulative aged-out entries (core.counters)
 
     @property
     def capacity(self) -> int:
@@ -124,16 +124,17 @@ def dict_lookup(d: PatternDictionary, keys: torch.Tensor, valid: torch.Tensor
         slot = torch.where(hit, cand.to(torch.int32), slot)
         done = done | hit | (cur == 0)
     hit = valid & (slot >= 0)
+    sd = sum_dtype(d.sig)
     # missed lanes add 0 to slot 0; hit slots are distinct (one key per slot)
     refcount = d.refcount.index_add(0, torch.where(hit, slot, 0).to(torch.int64),
                                     hit.to(torch.int32))
     clock = _set_at(d.clock, slot, hit, d.tick)
     d2 = dataclasses.replace(
         d, refcount=refcount, clock=clock, tick=d.tick + 1,
-        hits=d.hits + hit.sum(dtype=torch.int32),
-        misses=d.misses + (valid & ~hit).sum(dtype=torch.int32))
-    widen(d2, d.sig, ("hits", "misses"), base=d)  # core.counters
-    safe = slot.clamp(0, cap - 1).to(torch.int64)
+        hits=d.hits + hit.sum(dtype=sd),
+        misses=d.misses + (valid & ~hit).sum(dtype=sd))
+    widen(d2, d.sig, (), base=d)  # keeps n_entries' mark (core.counters)
+    safe =slot.clamp(0, cap - 1).to(torch.int64)
     minus1 = torch.full_like(slot, -1)
 
     def g(a):
@@ -175,6 +176,6 @@ def dict_admit(d: PatternDictionary, keys: torch.Tensor, admit: torch.Tensor,
         refcount=_set_at(refcount, slot, new, torch.ones_like(slot)),
         clock=_set_at(clock, slot, placed, d.tick),
         n_entries=d.n_entries - n_evicted + new.sum(dtype=torch.int32),
-        evictions=d.evictions + n_evicted,
+        evictions=d.evictions + n_evicted.to(sum_dtype(d.sig)),
     )
-    return widen(out, d.sig, ("n_entries", "evictions"), base=d)  # core.counters
+    return widen(out, d.sig, ("n_entries",), base=d)  # core.counters

@@ -11,7 +11,8 @@ and each comes back as uint32 or uint64.
     sketch, dictionary or snapshot as the reference holds them, by field
     name in field order: key fields unsigned, and each scalar counter at
     the reference's dtype (`core.counters`: int64 once a sum under x64
-    has updated it).  Reading marks the int64 counters;
+    has updated it).  Reading keeps the dtype of the counters the port
+    holds as the reference does, and marks the other int64 counters;
   * `store_from_numpy` / `store_to_numpy`: a store's arrays, by field
     name, in both directions (key fields unsigned on the numpy side);
   * `sketch_from_numpy` / `sketch_to_numpy`: the same for a
@@ -59,8 +60,10 @@ KEY_FIELDS = ("node_keys", "edge_keys", "edge_src", "edge_dst", "hh_keys", "node
 def from_reference_arrays(cls, arrays: Mapping[str, np.ndarray], device):
     """A `cls` on `device` from numpy arrays keyed by field name: key
     fields as int32 bits where they are 4-byte (uint32), else as int64
-    bits; every other field as int32, the scalar counters that arrive
-    as int64 marked so (`core.counters`)."""
+    bits; the counters the port holds at the reference's dtype
+    (`core.counters.HELD`) as they arrive, int32 or int64; every other
+    field as int32, the scalar counters that arrive as int64 marked so
+    (`core.counters`)."""
     wide = []
 
     def tensor(name):
@@ -68,7 +71,7 @@ def from_reference_arrays(cls, arrays: Mapping[str, np.ndarray], device):
         if name in KEY_FIELDS:
             a = signed_view(a.astype(np.uint32 if a.dtype.itemsize == 4 else np.uint64,
                                      copy=False))
-        elif a.dtype != np.int32:
+        elif a.dtype != np.int32 and name not in counters.HELD:
             if a.ndim == 0 and a.dtype == np.int64:
                 wide.append(name)
             a = a.astype(np.int32)

@@ -33,7 +33,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.core import compression as C
-from repro_torch.core.counters import widen
+from repro_torch.core.counters import sum_dtype
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.kernels.sketch import node_hash, sketch_scatter_ref
@@ -53,7 +53,7 @@ class GraphSketch:
     in_deg: torch.Tensor  # (D, W) int32 count-min of weighted in-degree
     hh_keys: torch.Tensor  # (K,) key bits of heavy-hitter candidates; 0 = empty
     hh_counts: torch.Tensor  # (K,) int32 their degree estimates
-    n_updates: torch.Tensor  # scalar int32: total edge count absorbed
+    n_updates: torch.Tensor  # 0-d total edge count absorbed (core.counters)
 
     @property
     def depth(self) -> int:
@@ -154,10 +154,9 @@ def sketch_update(sketch: GraphSketch, et) -> GraphSketch:
     cand_keys = torch.where(et.node_valid, et.node_ids, torch.zeros_like(et.node_ids))
     cand_cnt = torch.where(et.node_valid, est, torch.full_like(est, -1))
     hh_keys, hh_counts = _merge_top_k(sketch.hh_keys, sketch.hh_counts, cand_keys, cand_cnt)
-    out = GraphSketch(edge_w=ew, out_deg=od, in_deg=idg, hh_keys=hh_keys,
-                      hh_counts=hh_counts,
-                      n_updates=sketch.n_updates + cnt.sum(dtype=torch.int32))
-    return widen(out, hh_keys, ("n_updates",), base=sketch)  # core.counters
+    return GraphSketch(edge_w=ew, out_deg=od, in_deg=idg, hh_keys=hh_keys,
+                       hh_counts=hh_counts,
+                       n_updates=sketch.n_updates + cnt.sum(dtype=sum_dtype(hh_keys)))
 
 
 # ---------------------------------------------------------------------------

@@ -119,6 +119,15 @@ def pytree_digest(tree) -> str:
     return h.hexdigest()
 
 
+def _check_key_width(d: str, key: str, saved: np.ndarray, held) -> None:
+    """Refuse a key leaf of another width than the resume pipeline's."""
+    if saved.dtype.itemsize != held.element_size():
+        raise ValueError(
+            f"checkpoint {d} holds {8 * saved.dtype.itemsize}-bit keys ({key}: "
+            f"{saved.dtype}), the resume pipeline {8 * held.element_size()}-bit keys "
+            f"(key_dtype={held.dtype}): resume at the key width that saved it")
+
+
 class _HostUnpickler(pickle.Unpickler):
     """Reads a `host.pkl` of either package: a class of the reference
     (`repro.*`) loads as the port's of the same name (`repro_torch.*`),
@@ -228,11 +237,13 @@ class PipelineCheckpointer:
                 expect: Optional[Dict] = None) -> Dict:
         """Load the checkpoint into a freshly BUILT pipeline + source
         (same builder configuration as the saved run) and return the
-        manifest.  The leaves load onto the pipeline's device (key
-        fields as signed bits of their width, counters as the port's
-        int32).  `expect` entries are checked against the manifest's
-        `extra`: a scenario/seed/shard mismatch is a hard error, not a
-        silently wrong resume."""
+        manifest.  The leaves load onto the pipeline's device, key
+        fields as signed bits of their width and counters as
+        `convert.from_reference_arrays` reads them (`core.counters`).  A
+        checkpoint whose keys are of another width than the pipeline's
+        `key_dtype` is refused, as is an `expect` entry that differs
+        from the manifest's `extra` (a scenario, seed or shard
+        mismatch): a hard error, not a silently wrong resume."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
@@ -265,6 +276,8 @@ class PipelineCheckpointer:
                             f"saved one")
                     arrays[f.name] = np.load(os.path.join(d, files[key]))
                     consumed.add(key)
+                    if f.name in convert.KEY_FIELDS:
+                        _check_key_width(d, key, arrays[f.name], getattr(tmpl, f.name))
                 device = getattr(tmpl, dataclasses.fields(tmpl)[0].name).device
                 restored[name] = convert.from_reference_arrays(type(tmpl), arrays, device)
             orphans = set(files) - consumed

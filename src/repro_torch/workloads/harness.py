@@ -15,8 +15,10 @@ the controller audit trail (`telemetry`, and the `trace` and
 and its watermarks (`lineage`, `lineage_jsonl`), injected commit faults
 with backoff-governed retry (`fault_plan`, `retry`), and step-atomic
 checkpoints with kill and resume (`checkpoint_dir`, `resume`, a plan's
-`crash_at_tick`).  It takes every option of the reference's, and the
-report keeps every field of the reference's.
+`crash_at_tick`), at 64-bit or 32-bit keys (`key_dtype`).  It takes
+every option of the reference's but `cfg`, which no caller passes, and
+the report keeps every field of the reference's.  The reference's key
+width follows JAX's x64 flag; the port's is the `key_dtype` argument.
 """
 from __future__ import annotations
 
@@ -228,13 +230,18 @@ def scenario_builder(
     edge_cap: Optional[int] = None,
     shards: int = 1,
     spill_dir: Optional[str] = None,
+    key_dtype: torch.dtype = torch.int64,
     device: Union[str, torch.device, None] = None,
 ):
     """The pipeline `run_scenario` drives, not yet built: returns
     (builder, source, tally), the tally counting the commit events the
     report reads.  A caller may add to the builder (metrics, event
     handlers) before `build()`.  Without `spill_dir` each controller
-    spills into a fresh temporary directory of its own."""
+    spills into a fresh temporary directory of its own.
+
+    `key_dtype` is the width of every key of the pipeline, handed to
+    `PipelineBuilder`: torch.int64 (uint64 bits, the reference's keys
+    under x64) or torch.int32 (uint32 bits, its keys without x64)."""
     dev = resolve(device)
     cfg = IngestConfig(
         mean_rate=scn.base_rate,
@@ -243,7 +250,7 @@ def scenario_builder(
     )
     src = ScenarioSource(scn, seed=seed, rate_scale=rate_scale, device=dev)
     tally = _Tally()
-    b = (PipelineBuilder(cfg, device=dev)
+    b = (PipelineBuilder(cfg, device=dev, key_dtype=key_dtype)
          .with_source(src)
          .simulated_consumer(speed=speed)
          .on_event(tally))
@@ -285,10 +292,18 @@ def run_scenario(
     checkpoint_every: int = 16,
     checkpoint_keep: int = 3,
     resume: bool = False,
+    key_dtype: torch.dtype = torch.int64,
     device: Union[str, torch.device, None] = None,
 ) -> WorkloadReport:
     """Drive a pipeline through `scenario` on `device` (default the
     card) and report (module docstring).
+
+    `key_dtype` is the width of the pipeline's keys, chosen once here
+    and handed on to every stage, shard and checkpoint: torch.int64
+    (the default; uint64 bits, as the reference's `run_scenario` keys
+    under x64) or torch.int32 (uint32 bits, as it keys without x64).
+    Every option below works at either width; a resume refuses a
+    checkpoint saved at the other.
 
     `speed` scales the simulated consumer (0.5 = the paper's half-
     capacity store engine, the setting that makes bursts bite);
@@ -343,7 +358,8 @@ def run_scenario(
         scn, seed=seed, speed=speed, rate_scale=rate_scale,
         sketch_guided=sketch_guided, dict_compress=dict_compress,
         dict_capacity=dict_capacity, node_cap=node_cap, edge_cap=edge_cap,
-        shards=shards, spill_dir=spill_dir, device=device)
+        shards=shards, spill_dir=spill_dir, key_dtype=key_dtype,
+        device=device)
     reg = None
     if telemetry or trace or trace_jsonl or monitor:
         reg = telemetry if isinstance(telemetry, TelemetryRegistry) \

@@ -186,7 +186,7 @@ def test_sketch_numpy_round_trips():
                   for f in dataclasses.fields(RQ.GraphSketch)}
     port = convert.sketch_from_numpy(arrays, device="cpu")
     _assert_sketch_equal(port, want)
-    assert port.hh_keys.dtype == torch.int64 and port.n_updates.dtype == torch.int32
+    assert port.hh_keys.dtype == torch.int64 and port.n_updates.dtype == torch.int64
     back = convert.sketch_to_numpy(port)
     assert back["hh_keys"].dtype == np.uint64
     again = convert.sketch_to_numpy(convert.sketch_from_numpy(back, device="cpu"))

@@ -98,10 +98,12 @@ class ReplaySource:
         self._next = sum(1 for t, _ in self._ticks if t <= s["t"])
 
 
-def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False, ticks=TICKS, **options):
+def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False, ticks=TICKS, x64=True,
+                   **options):
     """The reference's `run_scenario` over `ticks` (`options` passed on),
     recording its ticks, each shard's (action, beta, reason) decisions,
-    the built pipeline, its store and its dictionary."""
+    the built pipeline, its store and its dictionary.  It keys the graph
+    with uint64 under x64 and with uint32 with `x64=False`."""
     rec = {"ticks": [], "decisions": [[] for _ in range(shards)]}
 
     class RecordingSource(RefScenarioSource):
@@ -122,7 +124,7 @@ def _reference_run(tmp, dict_compress, shards=1, sketch_guided=False, ticks=TICK
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ref_harness, "ScenarioSource", RecordingSource)
         mp.setattr(ref_harness, "PipelineBuilder", RecordingBuilder)
-        with jax.enable_x64(True):
+        with jax.enable_x64(x64):
             rec["report"] = ref_harness.run_scenario(
                 SCENARIO, ticks=ticks, seed=SEED, dict_compress=dict_compress, shards=shards,
                 sketch_guided=sketch_guided,
