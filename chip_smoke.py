@@ -232,7 +232,22 @@ Builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      refuse that checkpoint; prints wall ms a tick, records a wall second, a
      checkpoint's bytes, the capture's and write's ms and the launches
      by kernel.
-The profiled phases (3, 7, 11, 17 and 26) record device activity only.
+ 32. initialises an NCCL process group of one rank in its own process
+     (a `file://` rendezvous under the gitignored `build/`, a 60 s
+     timeout), builds `launch.mesh.make_dev_mesh(1, 1)` and drives
+     `make_distributed_ingest` on it: 24 commits of 2^17 raw edges
+     (Zipf-skewed sources and destinations over 2^21 users, 10% of the
+     lanes invalid) into a 2^22-node, 2^23-edge store, the reference
+     dryrun's caps, counters set to 0 just before and read just after:
+     requires K1 two launches a commit (2^18 and 2^17 lanes), the store
+     and every stat equal to the same commits through the plain route on
+     the host (`ingest_ranks`, one rank) and to `ingest_step` on the
+     card, and the tables about a third full; holds K1 to its plain
+     version bit for bit at one more commit's node and edge sweeps and
+     times both; prints the wall ms a commit and K1's device ms a commit
+     (a second run under torch.profiler), then destroys the process
+     group.
+The profiled phases (3, 7, 11, 17, 26 and 32) record device activity only.
 Any failure raises; no phase is caught.  It prints the card, the build
 time, each phase's seconds, a `kernels` JSON line and, last, the `ok`
 JSON line.  It exits non-zero without a CUDA device or without the port
@@ -2985,6 +3000,200 @@ def scenario32_path(torch, smi):
     return launches
 
 
+# Phase 32: the distributed ingest over an NCCL world of one, at the
+# reference's dryrun caps (src/repro/launch/ingest_dryrun.py:26-27) and
+# 2^17 raw edges a commit: the node sweep then takes 2^18 lanes, K1's
+# MAX_LANES (the dryrun's 2^18-edge commit would need 2^19, ROADMAP F37)
+DIST_CAPS = (1 << 22, 1 << 23)
+DIST_COMMITS = 24
+DIST_LANES = 1 << 17
+DIST_USERS = 1 << 21
+DIST_ZIPF_S = 0.8  # a bounded Zipf exponent: both tables end about a third full
+DIST_INVALID = 0.1
+DIST_INIT_TIMEOUT_S = 60
+
+
+def _zipf_ranks(rng, n, users, s):
+    """n ranks in [0, users) with P(k) about (k + 1)^-s (s < 1), by the
+    inverse CDF of the continuous power law."""
+    e = 1.0 - s
+    x = (((users + 1) ** e - 1) * rng.random(n) + 1) ** (1 / e)
+    return np.minimum(x.astype(np.int64) - 1, users - 1)
+
+
+def _dist_commits(torch, n_commits):
+    """Phase 32's raw commits on the host: Zipf-skewed sources and
+    destinations over DIST_USERS random 64-bit ids, three edge types,
+    DIST_INVALID of the lanes invalid."""
+    rng = np.random.default_rng(32)
+    users = _random_keys(rng, DIST_USERS)
+    out = []
+    for _ in range(n_commits):
+        src = users[_zipf_ranks(rng, DIST_LANES, DIST_USERS, DIST_ZIPF_S)]
+        dst = users[_zipf_ranks(rng, DIST_LANES, DIST_USERS, DIST_ZIPF_S)]
+        etype = rng.integers(0, 3, size=DIST_LANES).astype(np.int32)
+        valid = rng.random(DIST_LANES) >= DIST_INVALID
+        out.append(tuple(torch.from_numpy(a) for a in (src, dst, etype, valid)))
+    return out
+
+
+def _stores_equal(torch, a, b):
+    import dataclasses
+
+    return all(torch.equal(getattr(a, f.name).cpu(), getattr(b, f.name).cpu())
+               for f in dataclasses.fields(a))
+
+
+def distributed_path(torch, smi):
+    """Phase 32: `make_distributed_ingest` over `make_dev_mesh(1, 1)` in
+    an NCCL world of one, 24 commits into the 2^22/2^23 store; the same
+    commits through the plain route on the host and through `ingest_step`
+    on the card; K1 held at the path's sweeps and its device ms."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.compression import mix_keys
+    from repro_torch.core.counters import int64_counters
+    from repro_torch.core.edge_table import build_edge_table
+    from repro_torch.graphstore import store as PS
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as M
+    from repro_torch.telemetry.spans import TelemetryRegistry
+
+    init = ROOT / "build" / "distributed_pg"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=DIST_INIT_TIMEOUT_S))
+    try:
+        mesh = M.make_dev_mesh(1, 1)
+        ingest = PS.make_distributed_ingest(mesh)
+        init_s = time.perf_counter() - t0
+        host = _dist_commits(torch, DIST_COMMITS + 1)
+        extra = host.pop()  # one more commit's sweeps hold K1 below
+        card_commits = [tuple(t.cuda() for t in c) for c in host]
+
+        # ---- the card, counted and timed ------------------------------
+        card = PS.init_store(*DIST_CAPS)
+        torch.cuda.synchronize()
+        wall_ms, card_stats = [], []
+        build.launches.clear()
+        with k1_lanes() as hist:
+            for c in card_commits:
+                t1 = time.perf_counter()
+                card, stats = ingest(card, *c)
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t1) * 1e3)
+                card_stats.append(stats)
+        launches = dict(build.launches)
+        card_stats = [{k: v.cpu() for k, v in s.items()} for s in card_stats]
+
+        # ---- ingest_step on the card (D = 1) ----------------------------
+        whole = PS.init_store(*DIST_CAPS)
+        step_equal = True
+        for c, got in zip(card_commits, card_stats):
+            whole, want = PS.ingest_step(whole, build_edge_table(*c))
+            step_equal &= all(got[k].item() == want[k].item() for k in got)
+        step_equal &= _stores_equal(torch, card, whole) and \
+            int64_counters(card) == int64_counters(whole)
+        del whole
+
+        # ---- the plain route on the host: the same ranks in one process --
+        t1 = time.perf_counter()
+        shards = [PS.init_store(*DIST_CAPS, device="cpu")]
+        host_equal = True
+        for c, got in zip(host, card_stats):
+            shards, want = PS.ingest_ranks(shards, *c)
+            host_equal &= list(got) == list(want) and all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in got)
+        host_s = time.perf_counter() - t1
+        host_equal &= _stores_equal(torch, card, shards[0]) and \
+            int64_counters(card) == int64_counters(shards[0])
+        del shards
+
+        # ---- K1 at the path's sweeps, against the plain version ---------
+        et = build_edge_table(*(t.cuda() for t in extra))
+        n_nodes, n_edges = int(card.n_nodes), int(card.n_edges)
+        k1_rows = [
+            upsert_row(torch, "node", DIST_CAPS[0], card.node_keys, n_nodes, et.node_ids,
+                       et.node_valid, int(PS.probe_budget(card.n_nodes, DIST_CAPS[0]))),
+            upsert_row(torch, "edge", DIST_CAPS[1], card.edge_keys, n_edges,
+                       mix_keys(et.src, et.dst, et.etype).contiguous(), et.edge_valid,
+                       int(PS.probe_budget(card.n_edges, DIST_CAPS[1])))]
+
+        # ---- K1's device ms a commit, under torch.profiler --------------
+        again = PS.init_store(*DIST_CAPS)
+        torch.cuda.synchronize()
+
+        def drive():
+            nonlocal again
+            for c in card_commits:
+                again, _ = ingest(again, *c)
+
+        with k1_lanes() as prof_hist:
+            device = _profiled(torch, "distributed ingest", TelemetryRegistry(), drive,
+                               ticks=DIST_COMMITS)
+        k1 = kernel_device("distributed ingest", "K1", "fused_upsert", device, prof_hist)
+        again_equal = _stores_equal(torch, card, again)
+        del again
+    finally:
+        dist.destroy_process_group()
+        init.unlink(missing_ok=True)
+
+    last = card_stats[-1]
+    new_nodes = sum(int(s["new_nodes"]) for s in card_stats)
+    new_edges = sum(int(s["new_edges"]) for s in card_stats)
+    lanes = dict(sorted(hist.items()))
+    checks = {
+        "K1 two a commit": launches.get("fused_upsert", 0) == 2 * DIST_COMMITS
+        and set(launches) <= {"fused_upsert"},
+        "K1 at 2^18 and 2^17 lanes": lanes == {DIST_LANES: DIST_COMMITS,
+                                              2 * DIST_LANES: DIST_COMMITS},
+        "equal to the host's plain route": host_equal,
+        "equal to ingest_step on the card": step_equal,
+        "the profiled run alike": again_equal,
+        "counters": (n_nodes, n_edges) == (new_nodes, new_edges) > (0, 0)
+        and int64_counters(card) == {"n_nodes", "n_edges"},
+        "stats": all(bool(torch.isfinite(v).all()) and v.dim() == 0
+                     for s in card_stats for v in s.values()),
+        "a third full": 0.25 < n_nodes / DIST_CAPS[0] < 0.45
+        and 0.25 < n_edges / DIST_CAPS[1] < 0.45,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"distributed path: {checks}; launches {launches}, lanes {lanes}")
+    out = {
+        "card": smi, "world": 1, "backend": "nccl", "mesh": M.mesh_sizes(mesh),
+        "caps": DIST_CAPS, "commits": DIST_COMMITS, "raw_edges_a_commit": DIST_LANES,
+        "users": DIST_USERS, "zipf_s": DIST_ZIPF_S, "invalid": DIST_INVALID,
+        "init_s": init_s, "wall_ms_first_commit": wall_ms[0],
+        "wall_ms_a_commit": statistics.mean(wall_ms[1:]),
+        "wall_ms_a_commit_median": statistics.median(wall_ms[1:]),
+        "wall_ms_a_commit_max": max(wall_ms[1:]),
+        "k1_device_ms_a_commit": k1["device_ms"] / DIST_COMMITS,
+        "k1_device_ms_a_launch": k1["device_ms_per_launch"],
+        "k1_launches": launches.get("fused_upsert", 0), "k1_lanes": lanes,
+        "host_route_s": host_s, "n_nodes": n_nodes, "n_edges": n_edges,
+        "node_load": float(last["node_load"]), "edge_load": float(last["edge_load"]),
+        "probe_rounds_max": max(int(s["probe_rounds"]) for s in card_stats),
+        "dropped_inserts": sum(int(s["dropped_inserts"]) for s in card_stats),
+        "k1_rows": [{k: r[k] for k in ("sweep", "cap", "lanes", "table_load", "probes", "ms",
+                                       "plain_ms", "bound_ms", "max_rounds", "ctas",
+                                       "widths_checked", "new", "dropped")} for r in k1_rows],
+    }
+    print("distributed path: " + json.dumps(out), flush=True)
+    print(f"distributed path on {smi}: NCCL world of one, {DIST_COMMITS} commits of "
+          f"{DIST_LANES} raw edges into {DIST_CAPS[0]}/{DIST_CAPS[1]}: "
+          f"{out['wall_ms_a_commit']} ms a commit after the first ({wall_ms[0]} ms), K1 "
+          f"{out['k1_device_ms_a_commit']} device ms a commit over "
+          f"{launches.get('fused_upsert', 0)} launches; loads {out['node_load']} / "
+          f"{out['edge_load']}; equal to the host's plain route ({host_s} s) and to "
+          f"ingest_step on the card", flush=True)
+    return launches, k1_rows
+
+
 def _flash_tol(dtype, S, torch):
     """K7's (atol, rtol) against its plain version: the reference test's
     2e-6 in float32 up to S = 1,024 (its largest S is 512); beyond, 2e-6
@@ -3458,6 +3667,7 @@ def main():
     phase(29, lineage_path, torch, smi)
     phase(30, chaos_path, torch, smi)
     scn32_launches = phase(31, scenario32_path, torch, smi)
+    dist_launches, dist_rows = phase(32, distributed_path, torch, smi)
 
     # the main path's widest sweep at its own table load (under 1%)
     ref = next(r for r in rows if r["sweep"] == "node" and r["lanes"] == NODE_SWEEP[2]
@@ -3481,12 +3691,19 @@ def main():
         "name": "fused_upsert", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_upsert.cu",
         "replaces": "src/repro/kernels/upsert.py:104",
-        "launches": launches["fused_upsert"], "matched": True,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "launches": launches["fused_upsert"] + dist_launches["fused_upsert"],
+        "launches_by_path": {"launch.ingest (phase 2)": launches["fused_upsert"],
+                             "make_distributed_ingest (phase 32)":
+                             dist_launches["fused_upsert"]},
+        "matched": True,
+        "max_abs_err": max(r["max_abs_err"] for r in rows + dist_rows),
         "ms": ref["ms"], "plain_ms": ref["plain_ms"], "bound_ms": ref["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "max_rounds": ref["max_rounds"],
         "ctas": ref["ctas"],
         "shape": {k: ref[k] for k in ("sweep", "cap", "lanes", "load", "probes")},
+        "distributed_sweeps": [{k: r[k] for k in ("sweep", "cap", "lanes", "table_load",
+                                                  "probes", "ms", "plain_ms", "bound_ms",
+                                                  "ctas")} for r in dist_rows],
     }, {
         "name": "sketch_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sketch_scatter.cu",

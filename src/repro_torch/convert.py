@@ -15,6 +15,10 @@ and each comes back as uint32 or uint64.
     holds as the reference does, and marks the other int64 counters;
   * `store_from_numpy` / `store_to_numpy`: a store's arrays, by field
     name, in both directions (key fields unsigned on the numpy side);
+  * `shard_store_arrays` / `gather_store_arrays`: a whole store's arrays
+    cut into rank r's shard of D for `make_distributed_ingest` (its
+    slice of each table's rows, the counters replicated), and D shards'
+    arrays joined back into the whole store's;
   * `sketch_from_numpy` / `sketch_to_numpy`: the same for a
     `GraphSketch` (`hh_keys` unsigned);
   * `snapshot_to_numpy`: a `GraphSnapshot`'s arrays (`node_key`
@@ -110,6 +114,43 @@ def store_from_numpy(arrays: Mapping[str, np.ndarray],
 def store_to_numpy(store: GraphStore) -> Dict[str, np.ndarray]:
     """The port store's arrays as numpy, key fields unsigned."""
     return reference_arrays(store)
+
+
+def shard_store_arrays(arrays: Mapping[str, np.ndarray], rank: int,
+                       n_ranks: int) -> Dict[str, np.ndarray]:
+    """Rank `rank`'s shard of D = `n_ranks` of a whole store's arrays
+    (`store_to_numpy`'s layout, or the reference's global `GraphStore`):
+    the rank-th of D equal slices of each table's rows, as the
+    reference's `P("data")` places them, and the scalar counters as they
+    are (replicated)."""
+    if not 0 <= rank < n_ranks:
+        raise ValueError(f"rank {rank} is not in [0, {n_ranks})")
+    out = {}
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        if a.ndim:
+            if a.shape[0] % n_ranks:
+                raise ValueError(f"{name}: {a.shape[0]} rows do not split into {n_ranks} shards")
+            per = a.shape[0] // n_ranks
+            a = a[rank * per:(rank + 1) * per]
+        out[name] = a.copy()
+    return out
+
+
+def gather_store_arrays(shards) -> Dict[str, np.ndarray]:
+    """The whole store's arrays from its D shards' (in rank order): the
+    tables' slices joined, and the scalar counters, which every shard
+    must hold alike (raises otherwise)."""
+    out = {}
+    for name, first in shards[0].items():
+        parts = [np.asarray(s[name]) for s in shards]
+        if np.asarray(first).ndim:
+            out[name] = np.concatenate(parts)
+        else:
+            if any(p.dtype != parts[0].dtype or p != parts[0] for p in parts):
+                raise ValueError(f"{name} differs between shards: {parts}")
+            out[name] = parts[0].copy()
+    return out
 
 
 def sketch_from_numpy(arrays: Mapping[str, np.ndarray],

@@ -14,6 +14,13 @@ x4 past 0.8) and stays a device scalar, which the kernel reads itself.
 `commit_compressed` commits a GraphZip `CompressedCommit`: the residual
 through `ingest_step`, the dictionary references by direct scatter.
 
+`make_distributed_ingest` spreads the store over the `data` dimension of
+a `torch.distributed` device mesh: each rank holds a slice of the table
+rows, routes its raw edges to their owners with one `all_to_all_single`
+and commits what it receives through `ingest_step`.
+`ingest_ranks` runs the same ranks in one process, without a process
+group.
+
 Unlike the reference, `ingest_step` and `commit_compressed` update the
 store's tensors IN PLACE and return the same `GraphStore`: the tables
 are the largest state on the device, and a functional copy would move
@@ -30,8 +37,9 @@ from typing import Tuple, Union
 
 import torch
 
-from repro_torch.core.compression import check_key_dtype, flip_sign, mix_keys
-from repro_torch.core.counters import widen
+from repro_torch.core.compression import check_key_dtype, flip_sign, lsr, mix_keys
+from repro_torch.core.counters import sum_dtype, widen
+from repro_torch.core.edge_table import build_edge_table
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
@@ -279,3 +287,160 @@ def commit_compressed(store: GraphStore, cc) -> Tuple[GraphStore, dict]:
         ),
     )
     return store, stats
+
+
+# ---------------------------------------------------------------------------
+# Distributed ingest: shard by key ownership over the `data` dimension
+# ---------------------------------------------------------------------------
+
+# stats reduced by max instead of sum across ranks (budgets and load
+# factors are per-table properties, not additive counts)
+_STATS_MAX_KEYS = ("probe_rounds", "node_load", "edge_load")
+# stats that index a rank's own tables, dropped before the reduction
+_SHARD_LOCAL = ("delta", "nslot", "eslot")
+_LOW32 = 0xFFFFFFFF
+
+
+def owner(src: torch.Tensor, n_ranks: int) -> torch.Tensor:
+    """The rank that owns each edge: its source key, as the unsigned
+    integer it holds, mod `n_ranks` (int32).  The key is not hashed,
+    as in the reference's code (its docstring says "hash % D")."""
+    if src.dtype == torch.int64:
+        # u = 2 * (u >> 1) + (u & 1), and u >> 1 fits a signed int64
+        own = ((lsr(src, 1) % n_ranks) * 2 + (src & 1)) % n_ranks
+    else:
+        own = (src.to(torch.int64) & _LOW32) % n_ranks
+    return own.to(torch.int32)
+
+
+def route(src: torch.Tensor, dst: torch.Tensor, etype: torch.Tensor, valid: torch.Tensor,
+          n_ranks: int) -> torch.Tensor:
+    """One rank's raw edges (n_local lanes) as its send buffer for the
+    exchange: (n_ranks, 4, n_local // n_ranks) of the keys' dtype, row r
+    for rank r, holding src, dst, etype and a keep flag (1 or 0).
+
+    Lanes are sorted by owner (a stable sort, as `jnp.argsort`), and
+    slot i goes to rank i // per, per = n_local // n_ranks: a lane whose
+    owner is not its slot's rank is dropped without a count, as in the
+    reference's capacity-partitioned exchange."""
+    n = src.shape[0]
+    if n % n_ranks:
+        raise ValueError(f"a rank's {n} raw edges do not split into {n_ranks} equal "
+                         f"slots (n_local % D != 0)")
+    per = n // n_ranks
+    own = owner(src, n_ranks)
+    order = torch.argsort(own, stable=True)
+    slot_owner = torch.arange(n, device=src.device) // per
+    keep = valid[order] & (own[order] == slot_owner)
+    kd = src.dtype
+    lanes = torch.stack([src[order], dst[order], etype[order].to(kd), keep.to(kd)])
+    return lanes.reshape(4, n_ranks, per).transpose(0, 1).contiguous()
+
+
+def commit(store: GraphStore, received: torch.Tensor) -> Tuple[GraphStore, dict]:
+    """Commit what a rank received from the exchange ((D, 4, per): row r
+    from rank r) to its shard `store`, whose counters are the global ones.
+
+    The shard's tables are updated in place; its counters are not (the
+    caller adds the reduced new-node and new-edge counts).  The commit
+    sees the global counters divided by D, so the probe budget and the
+    loads follow the shard's own fill.  Returns (store, this rank's
+    stats) without the shard-local `delta`, `nslot` and `eslot`."""
+    n_ranks = received.shape[0]
+    src, dst, etype, keep = received.transpose(0, 1).reshape(4, -1)
+    et = build_edge_table(src, dst, etype.to(torch.int32), keep != 0)
+    local = dataclasses.replace(store, n_nodes=store.n_nodes // n_ranks,
+                                n_edges=store.n_edges // n_ranks)
+    _, stats = ingest_step(local, et)
+    for k in _SHARD_LOCAL:
+        stats.pop(k)
+    return store, stats
+
+
+def _pack_stats(stats: dict, key: torch.Tensor):
+    """A rank's stats as two tensors for the reduction: the summed counts
+    at the reference's dtype of a sum (`core.counters.sum_dtype`), and
+    the maxima in float32 (the probe budget, at most 128, is exact)."""
+    names = [k for k in stats if k not in _STATS_MAX_KEYS]
+    sums = torch.stack([stats[k].to(sum_dtype(key)) for k in names])
+    maxes = torch.stack([stats[k].to(torch.float32) for k in _STATS_MAX_KEYS])
+    return names, sums, maxes
+
+
+def _unpack_stats(order, names, sums: torch.Tensor, maxes: torch.Tensor) -> dict:
+    out = dict(zip(names, sums.unbind()))
+    out.update(zip(_STATS_MAX_KEYS, maxes.unbind()))
+    out["probe_rounds"] = out["probe_rounds"].to(torch.int32)
+    return {k: out[k] for k in order}
+
+
+def _add_new(store: GraphStore, stats: dict) -> None:
+    """The global counters after a commit: old + the summed new counts,
+    in place (int32, marked as the reference's int64 at 64-bit keys)."""
+    store.n_nodes += stats["new_nodes"].to(store.n_nodes.dtype)
+    store.n_edges += stats["new_edges"].to(store.n_edges.dtype)
+    widen(store, store.node_keys, ("n_nodes", "n_edges"))  # core.counters
+
+
+def make_distributed_ingest(mesh):
+    """The ingest over the mesh's `data` dimension (D ranks): each rank
+    owns the edges whose source key mod D is its rank, and holds its
+    slice of the table rows; one `all_to_all_single` routes every edge to
+    its owner, then the local commit (dedup and the two fused-upsert
+    sweeps of `ingest_step`) runs unchanged.
+
+    Returns `ingest(store, src, dst, etype, valid) -> (store, stats)`,
+    which every rank of the mesh calls with its shard (its slice of each
+    table, and the global `n_nodes`/`n_edges`) and its own n_local raw
+    edges.  The shard is updated in place; the stats are reduced over
+    the ranks (max for the probe budget and the loads, sum for the rest)
+    and are the same on every rank.  The summed `store_nodes` and
+    `store_edges` lag the global counters by their remainder mod D, and a
+    node that several ranks hold counts once a rank, as in the reference.
+    The `model` (and `pod`) dimension replicates the ingest."""
+    import torch.distributed as dist
+
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the mesh")
+    n_ranks = mesh.size(mesh.mesh_dim_names.index("data"))
+    group = mesh.get_group("data")
+
+    def ingest(store, src, dst, etype, valid):
+        send = route(src, dst, etype, valid, n_ranks)
+        received = torch.empty_like(send)
+        dist.all_to_all_single(received, send, group=group)
+        store, local = commit(store, received)
+        names, sums, maxes = _pack_stats(local, store.node_keys)
+        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(maxes, op=dist.ReduceOp.MAX, group=group)
+        stats = _unpack_stats(list(local), names, sums, maxes)
+        _add_new(store, stats)
+        return store, stats
+
+    return ingest
+
+
+def ingest_ranks(shards, src, dst, etype, valid):
+    """`make_distributed_ingest`'s D ranks in one process, with no
+    process group: `shards` are the D ranks' stores, and rank r's raw
+    edges are the r-th of D equal slices of `src`, `dst`, `etype` and
+    `valid`.  The exchange is a transpose of the routed buffers, the
+    reduction a sum and a max over the ranks.  Updates every shard in
+    place; returns (shards, stats)."""
+    n_ranks = len(shards)
+    n = src.shape[0]
+    if n % n_ranks:
+        raise ValueError(f"{n} raw edges do not split into {n_ranks} ranks")
+    m = n // n_ranks
+    sends = [route(src[r * m:(r + 1) * m], dst[r * m:(r + 1) * m],
+                   etype[r * m:(r + 1) * m], valid[r * m:(r + 1) * m], n_ranks)
+             for r in range(n_ranks)]
+    local = [commit(shard, torch.stack([s[r] for s in sends]))[1]
+             for r, shard in enumerate(shards)]
+    packed = [_pack_stats(s, shards[0].node_keys) for s in local]
+    sums = torch.stack([p[1] for p in packed])
+    stats = _unpack_stats(list(local[0]), packed[0][0], sums.sum(0, dtype=sums.dtype),
+                          torch.stack([p[2] for p in packed]).amax(0))
+    for shard in shards:
+        _add_new(shard, stats)
+    return shards, stats

@@ -6,7 +6,9 @@
     `monitor`, `lineage` and `resilience` packages, `resilience.checkpoint`
     and `launch.telemetry`/`launch.monitor`/`launch.lineage`/
     `launch.chaos`), and no
-    source file under `src/repro_torch` imports either.
+    source file under `src/repro_torch` imports either.  Importing
+    `launch.mesh` and the distributed ingest's module initialises no
+    process group either.
   * Entry points default to the card: without one, a run that did not
     ask for the CPU raises instead of carrying on on the host.
   * `chip_smoke.py` fails, and prints no result, where there is no card.
@@ -57,6 +59,26 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 85 and bad == "[]", out.stdout
+
+
+_IMPORT_MESH = """
+import sys
+import torch.distributed as dist
+import repro_torch.launch.mesh
+import repro_torch.graphstore.store
+from repro_torch.graphstore.store import make_distributed_ingest
+from repro_torch.launch.mesh import dp_size, make_dev_mesh, make_production_mesh
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print(dist.is_initialized(), bad)
+"""
+
+
+def test_importing_the_mesh_module_loads_no_jax_and_starts_no_process_group():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_MESH], capture_output=True, text=True,
+                         env=_env(), cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False []", out.stdout
 
 
 def test_no_port_source_imports_jax_or_the_reference():
